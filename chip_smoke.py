@@ -19,7 +19,22 @@ result line):
      radius 5, priority collisions, 'finish', cached auto-reset, packed
      observations) reset on the card, then 3 timed trials of 256
      ``step_autoreset`` steps with actions from a CUDA generator, with
-     its invariants checked and K1's launches counted;
+     its invariants checked and K1's launches counted; a per-part
+     breakdown of one step and a profiler kernel table follow;
+  6. policy: the shipped ``.ckpt_rec128_ft`` weights (committed as
+     ``pogema_torch/weights/rec128_ft.npz``) in bf16 on 64 config-D
+     states: K1 bit-equal at M = N = 128, logits and values within
+     POLICY_TOL of the same module on the CPU, greedy actions equal where
+     the CPU's top-2 margin exceeds twice that;
+  7. serve, the evaluation path at full width: ``make_policy_evaluator``
+     on config D (1024 envs x 128 agents, LifeLong 64x64, r=5) with those
+     weights, 3 timed greedy episodes, K1 launched exactly once per step,
+     invariants and metrics checked;
+  8. serve_agree: both evaluators (policy, f32 model; planner) on the
+     card and on the CPU with the same keys must agree bit for bit (the
+     policy may first differ only at a near-tie, which is printed);
+  9. planner: ``evaluate_planner`` at config-C shapes with 1024 envs:
+     the fields' time and sweeps, fields against the CPU, the episode;
 then one JSON line listing the kernels and, last, the ok line.
 
 Needs one CUDA device; exits non-zero without one, and outside a
@@ -28,6 +43,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -43,6 +59,22 @@ CONFIG_C = dict(size=64, num_agents=64, obs_radius=5, max_episode_steps=128,
 NUM_ENVS_C = 4096
 STEPS_PER_TRIAL = 256
 TRIALS = 3
+
+# Config D (README): LifeLong 64x64, 128 agents, r=5, served with the
+# shipped .ckpt_rec128_ft weights.
+CONFIG_D = dict(size=64, num_agents=128, obs_radius=5, density=0.3, on_target="restart",
+                max_episode_steps=128)
+NUM_ENVS_D = 1024
+SERVE_EPISODES = 3
+WEIGHTS = os.path.join(ROOT, "pogema_torch", "weights", "rec128_ft.npz")
+# Card against cpu for the bf16 policy, |diff| / max(1, |cpu|): the card
+# sums its f32 GEMMs in another order and its exp and tanh differ from the
+# cpu's in the last f32 bits, so a bf16 rounding may land one ulp (2^-8)
+# apart and carry through the GRU and the head. The cpu tests hold the
+# port to flax by the same bound.
+POLICY_TOL = 1e-2
+# The planner at config-C shapes with a quarter of config C's envs.
+PLANNER_ENVS = 1024
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
@@ -184,12 +216,9 @@ def phase_devices_agree(device, steps=64):
           f"(3 collision systems x 3 on_target x cached/regen)", flush=True)
 
 
-def check_invariants(state, obs, cfg, sample=64):
-    """No active agent on an obstacle or sharing a cell; the obstacle
-    block of the observations equals the plain windows."""
+def check_state_invariants(state):
+    """No active agent on an obstacle or sharing a cell."""
     import torch
-
-    from pogema_torch.ops.windows import extract_windows_packed_ref
 
     b, n, _ = state.agents_xy.shape
     p = state.obstacles.shape[-1]
@@ -201,6 +230,18 @@ def check_invariants(state, obs, cfg, sample=64):
     srt = tagged.sort(dim=1).values
     if (srt[:, 1:] == srt[:, :-1]).any():
         raise AssertionError("two active agents share a cell")
+    return cells
+
+
+def check_invariants(state, obs, cfg, sample=64):
+    """The state invariants, and the obstacle block of the observations
+    equals the plain windows."""
+    import torch
+
+    from pogema_torch.ops.windows import extract_windows_packed_ref
+
+    b, n, _ = state.agents_xy.shape
+    cells = check_state_invariants(state)
     ww = cfg.window ** 2
     idx = torch.linspace(0, b - 1, sample, device=cells.device).long()
     ref = extract_windows_packed_ref(state.obstacles[idx], state.agents_xy[idx], cfg.window)
@@ -315,12 +356,40 @@ def phase_breakdown(device, steps=32):
     return out
 
 
-def profile_step(device, steps=8):
-    """Device time by kernel over a few config-C steps (torch.profiler),
-    written to chiprun_out/profile_config_c.txt; prints the device-busy
-    share of the window."""
+def _profile(label, fname, fn, steps):
+    """Device time by kernel over ``steps`` calls of ``fn``
+    (torch.profiler), written to chiprun_out/<fname>; prints the
+    device-busy share of the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
+    dev_us = sum(kernels.values())
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", fname), "w") as f:
+        for name, us in sorted(kernels.items(), key=lambda kv: -kv[1]):
+            f.write(f"{us / steps:10.1f} us/step  {name}\n")
+    print(f"profile over {steps} {label}: wall {wall * 1e3 / steps:.3f} ms/step "
+          f"(profiler on), kernels {dev_us / 1e3 / steps:.3f} ms/step, device busy share "
+          f"{dev_us / 1e6 / wall:.3f}", flush=True)
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {us / steps:9.1f} us/step  {name[:90]}", flush=True)
+
+
+def profile_step(device, steps=8):
+    """The kernel table of a few config-C steps
+    (chiprun_out/profile_config_c.txt)."""
+    import torch
 
     from pogema_torch import GridConfig, PogemaCore
 
@@ -332,28 +401,304 @@ def profile_step(device, steps=8):
                           generator=gen, dtype=torch.int32) for _ in range(steps + 2)]
     for a in acts[:2]:
         state, *_ = core.step_autoreset(state, state, a)
-    init = state
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for a in acts[2:]:
-            state, *_ = core.step_autoreset(state, init, a)
+    init, box = state, [state]
+    todo = iter(acts[2:])
+
+    def one():
+        box[0] = core.step_autoreset(box[0], init, next(todo))[0]
+
+    _profile("config-C steps", "profile_config_c.txt", one, steps)
+
+
+def profile_serve(device, steps=8):
+    """The kernel table of a few config-D serving steps, each the body of
+    the evaluator's loop: policy forward, greedy action, env step, done
+    test and freeze (chiprun_out/profile_serve_d.txt)."""
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch.core import step as step_mod
+    from pogema_torch.core.api import select_state
+    from pogema_torch.interop import load_policy
+
+    core = PogemaCore(GridConfig(seed=0, **CONFIG_D), num_envs=NUM_ENVS_D, device=device)
+    model = load_policy(WEIGHTS, device=device)
+    st, _ = core.reset(core.make_key(5), with_obs=False)
+    box = [st, model.initial_carry((NUM_ENVS_D, CONFIG_D["num_agents"]))]
+
+    @torch.no_grad()
+    def one():
+        st, h = box
+        done = step_mod.episode_done(core.cfg, st)
+        h, logits, _ = model.step_from_state(st.obstacles, st.agents_xy, st.targets_xy,
+                                             st.active, h)
+        new, _ = step_mod.step(core.cfg, st, logits.argmax(-1).to(torch.int32), with_obs=False)
+        box[:] = [select_state(done, st, new), h]
+
+    one()
+    _profile("config-D serving steps", "profile_serve_d.txt", one, steps)
+
+
+def _rel_err(got, want):
+    """max |got - want| / max(1, |want|), on the CPU in f32."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+
+
+def _top2_margin(logits):
+    top2 = logits.float().topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def phase_policy(device, b=64, steps=3):
+    """The shipped .ckpt_rec128_ft weights (from the committed .npz) in
+    bf16 on 64 config-D states: K1 bit-equal to its plain version at
+    M = N = 128, and the card's logits and values against the same module
+    on the CPU over ``steps`` chained GRU steps."""
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch.core import step as step_mod
+    from pogema_torch.interop import load_policy
+    from pogema_torch.ops import cuda_windows
+    from pogema_torch.ops.windows import extract_windows_packed_ref
+
+    n = CONFIG_D["num_agents"]
+    core = PogemaCore(GridConfig(seed=0, **CONFIG_D), num_envs=b, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    state, _ = core.reset(3, with_obs=False)
+    states = []
+    for _ in range(steps):  # random moves between the states the policy sees
+        for _ in range(4):
+            a = torch.randint(0, 5, (b, n), device=device, generator=gen, dtype=torch.int32)
+            state, _ = step_mod.step(core.cfg, state, a, with_obs=False)
+        states.append(state)
+    w = core.cfg.window
+    got = cuda_windows.extract_windows_packed(state.obstacles, state.agents_xy, w)
+    if not torch.equal(got, extract_windows_packed_ref(state.obstacles, state.agents_xy, w)):
+        raise AssertionError("K1 differs from its plain version on config-D states (M = N = 128)")
+    card, host = load_policy(WEIGHTS, device=device), load_policy(WEIGHTS, device="cpu")
+    h_dev, h_cpu = card.initial_carry((b, n)), host.initial_carry((b, n))
+    errs, decided, flips = [], 0, 0
+    with torch.no_grad():
+        for st in states:
+            args = (st.obstacles, st.agents_xy, st.targets_xy, st.active)
+            h_dev, l_dev, v_dev = card.step_from_state(*args, h_dev)
+            h_cpu, l_cpu, v_cpu = host.step_from_state(*(a.cpu() for a in args), h_cpu)
+            errs.append(max(_rel_err(l_dev, l_cpu), _rel_err(v_dev, v_cpu)))
+            mask = _top2_margin(l_cpu) > 2 * POLICY_TOL
+            decided += int(mask.sum())
+            flips += int((l_dev.argmax(-1).cpu() != l_cpu.argmax(-1))[mask].sum())
+    if not all(torch.isfinite(t).all() for t in (l_dev, v_dev, h_dev)):
+        raise AssertionError("non-finite policy outputs on the card")
+    print(f"policy (rec128_ft, bf16, B={b} N={n}): K1 bit-equal at M=N={n}; card vs cpu "
+          f"max |diff|/max(1,|cpu|) per step {errs} (tolerance {POLICY_TOL}); greedy actions "
+          f"differ at {flips} of {decided} agents with a cpu top-2 margin > {2 * POLICY_TOL}; "
+          f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    if max(errs) > POLICY_TOL or flips:
+        raise AssertionError("the card's policy outputs differ from the cpu's beyond the tolerance")
+
+
+def phase_serve(device):
+    """This slice's path at full width: make_policy_evaluator on config D
+    (1024 envs x 128 agents, 64x64, r=5, LifeLong) with the shipped
+    rec128_ft weights in bf16, 3 timed greedy episodes (each with its
+    reset). Then, outside the counted run, host-clock times of the reset,
+    the policy forward and its parts, the env step, the done test and
+    freeze, and K1 at config-D shapes. Returns (K1 launches, summary);
+    ``loop_ms_per_step`` is (best episode - reset) / steps."""
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch.core import collisions, step as step_mod
+    from pogema_torch.core.api import select_state
+    from pogema_torch.interop import load_policy
+    from pogema_torch.core.obs import packed_observation
+    from pogema_torch.models.embed_actor_critic import embed_obs
+    from pogema_torch.ops import cuda_windows
+    from pogema_torch.ops.windows import packed_lanes
+    from pogema_torch.parallel import make_policy_evaluator
+
+    kernel = cuda_windows.extract_windows_packed
+    b, n, steps = NUM_ENVS_D, CONFIG_D["num_agents"], CONFIG_D["max_episode_steps"]
+    core = PogemaCore(GridConfig(seed=0, **CONFIG_D), num_envs=b, device=device)
+    model = load_policy(WEIGHTS, device=device)
+    run = make_policy_evaluator(core, model)
+
+    times, throughput = [], []
+    kernel.launches = 0
+    collisions.fixpoint.passes = 0
+    for ep in range(SERVE_EPISODES):
+        before = kernel.launches
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
-    dev_us = sum(kernels.values())
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "profile_config_c.txt"), "w") as f:
-        for name, us in sorted(kernels.items(), key=lambda kv: -kv[1]):
-            f.write(f"{us / steps:10.1f} us/step  {name}\n")
-    print(f"profile over {steps} config-C steps: wall {wall * 1e3 / steps:.3f} ms/step "
-          f"(profiler on), kernels {dev_us / 1e3 / steps:.3f} ms/step, device busy share "
-          f"{dev_us / 1e6 / wall:.3f}", flush=True)
-    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"  {us / steps:9.1f} us/step  {name[:90]}", flush=True)
+        t0 = time.perf_counter()
+        state, metrics = run(core.make_key(ep))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if kernel.launches - before != steps:
+            raise AssertionError(f"episode {ep} launched K1 {kernel.launches - before} times, "
+                                 f"expected {steps} (one per policy step)")
+        check_state_invariants(state)
+        thr = metrics["avg_throughput"]
+        if thr.shape != (b,) or not torch.isfinite(thr).all() or not (state.step_count == steps).all():
+            raise AssertionError("bad metrics or episode length at the end of a serving episode")
+        throughput.append(float(thr.mean()))
+    launches, passes = kernel.launches, collisions.fixpoint.passes
+
+    def host_ms(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = core.reset(core.make_key(9), with_obs=False)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    h = model.initial_carry((b, n))
+    acts = torch.zeros(b, n, dtype=torch.int32, device=device)
+    args = (st.obstacles, st.agents_xy, st.targets_xy, st.active)
+    obs = packed_observation(model.window, *args)
+    bias = model.embed_bias.to(model.dtype)
+    e = embed_obs(model.embed_kernel, bias, model.dtype, obs)
+    with torch.no_grad():
+        policy_ms = host_ms(lambda: model.step_from_state(*args, h))
+        parts = {"packed_obs": host_ms(lambda: packed_observation(model.window, *args)),
+                 "embed_gemm": host_ms(lambda: embed_obs(model.embed_kernel, bias, model.dtype, obs)),
+                 "gru_and_head": host_ms(lambda: model._finish(h, e))}
+    step_ms = host_ms(lambda: step_mod.step(core.cfg, st, acts, with_obs=False))
+    done_select_ms = host_ms(lambda: select_state(step_mod.episode_done(core.cfg, st), st, st))
+    w = core.cfg.window
+    k1_ms = cuda_time_ms(lambda: kernel(st.obstacles, st.agents_xy, w))
+    p = st.obstacles.shape[-1]
+    k1_bound_ms = (b * p * p + b * n * 8 + b * n * packed_lanes(w) * 4) / HBM_BYTES_PER_S * 1e3
+    best = min(times)
+    summary = {"episode_s": times, "env_steps_per_s": b * steps / best,
+               "ms_per_step": best / steps * 1e3, "reset_s": reset_s,
+               "loop_ms_per_step": (best - reset_s) / steps * 1e3,
+               "policy_ms_per_step": policy_ms, "policy_parts_ms": parts,
+               "env_step_ms": step_ms, "done_and_freeze_ms": done_select_ms,
+               "avg_throughput": throughput, "k1_launches": launches,
+               "k1_launches_per_episode": launches / SERVE_EPISODES,
+               "fixpoint_passes_per_step": passes / (SERVE_EPISODES * steps),
+               "k1_ms_config_d": k1_ms, "k1_bound_ms_config_d": k1_bound_ms}
+    print("serve (config D, 1024 x 128, rec128_ft bf16, greedy): " + json.dumps(summary), flush=True)
+    return launches, summary
+
+
+def _first_divergence(cores, models, seed):
+    """The greedy policy loop of the evaluator stepped on the cpu and the
+    card in lockstep: (step, smallest cpu top-2 margin among the agents
+    whose actions differ) at the first step they differ."""
+    import torch
+
+    from pogema_torch.core import step as step_mod
+    from pogema_torch.core.api import select_state
+
+    devs = list(cores)
+    cfg = cores[devs[0]].cfg
+    st = {d: cores[d].reset(cores[d].make_key(seed), with_obs=False)[0] for d in devs}
+    h = {d: models[d].initial_carry((cores[d].num_envs, cfg.num_agents)) for d in devs}
+    with torch.no_grad():
+        for t in range(cfg.max_episode_steps):
+            logits = {}
+            for d in devs:
+                s = st[d]
+                h[d], logits[d], _ = models[d].step_from_state(s.obstacles, s.agents_xy,
+                                                               s.targets_xy, s.active, h[d])
+            acts = {d: logits[d].argmax(-1).to(torch.int32) for d in devs}
+            differ = acts[devs[0]].cpu() != acts[devs[1]].cpu()
+            if differ.any():
+                return t, float(_top2_margin(logits["cpu"].cpu())[differ].min())
+            for d in devs:
+                done = step_mod.episode_done(cfg, st[d])
+                new, _ = step_mod.step(cfg, st[d], acts[d], with_obs=False)
+                st[d] = select_state(done, st[d], new)
+    return None, None
+
+
+def phase_serve_agree(device):
+    """Both evaluators with the same keys on the card and on the cpu, f32
+    model, 16x16, 12 agents, r=3, 8 envs: the planner's final state and
+    metrics bit-equal; the policy's bit-equal or diverging first at a
+    near-tie (cpu top-2 margin < 1e-5)."""
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch.core.planner import make_planner_evaluator
+    from pogema_torch.models import init_recurrent_params
+    from pogema_torch.parallel import make_policy_evaluator
+
+    model, _ = init_recurrent_params(torch.Generator().manual_seed(0), 7, embed=64, hidden=64,
+                                     dtype=torch.float32)
+    devs = ("cpu", device)
+    models = {"cpu": model.eval(), device: copy.deepcopy(model).to(device).eval()}
+    report = []
+    for ot in ("finish", "restart"):
+        gc = GridConfig(size=16, num_agents=12, obs_radius=3, max_episode_steps=24, on_target=ot)
+        cores = {d: PogemaCore(gc, num_envs=8, device=d) for d in devs}
+        runs = {"policy": {d: make_policy_evaluator(cores[d], models[d]) for d in devs}}
+        if ot != "restart":
+            runs["planner"] = {d: make_planner_evaluator(cores[d]) for d in devs}
+        for name, run in runs.items():
+            for seed in (0, 1):
+                (s_cpu, m_cpu), (s_dev, m_dev) = (run[d](cores[d].make_key(seed)) for d in devs)
+                if _states_equal(s_cpu, s_dev) and _tree_equal(m_cpu, m_dev):
+                    report.append(f"{name}/{ot}/{seed}: bit-equal")
+                    continue
+                if name == "planner":
+                    raise AssertionError(f"planner on {device} differs from cpu: {ot} seed {seed}")
+                t, margin = _first_divergence(cores, models, seed)
+                report.append(f"{name}/{ot}/{seed}: first differs at step {t}, margin {margin}")
+                if t is None or margin >= 1e-5:
+                    raise AssertionError(f"policy on {device} differs from cpu beyond a near-tie: "
+                                         f"{ot} seed {seed}, step {t}, margin {margin}")
+    print("serve_agree (card vs cpu, same keys): " + "; ".join(report), flush=True)
+
+
+def phase_planner(device):
+    """evaluate_planner at config-C shapes (64x64 mazes, 64 agents, r=5,
+    'finish'), PLANNER_ENVS envs instead of config C's 4096: the fields'
+    time and sweeps, a sample of fields against the cpu, the episode."""
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch.core import planner
+
+    core = PogemaCore(GridConfig(seed=0, **CONFIG_C), num_envs=PLANNER_ENVS, maze=True,
+                      device=device)
+    state, _ = core.reset(core.make_key(0), with_obs=False)
+    planner.distance_fields.sweeps = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist = planner.distance_fields(state.obstacles, state.targets_xy)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    sweeps = planner.distance_fields.sweeps
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    ref = planner.distance_fields(state.obstacles[:4].cpu(), state.targets_xy[:4].cpu())
+    if not torch.equal(dist[:4].cpu(), ref):
+        raise AssertionError("distance fields on the card differ from the cpu's")
+    del dist
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = planner.evaluate_planner(core, 0)
+    torch.cuda.synchronize()
+    episode_s = time.perf_counter() - t0
+    check_state_invariants(state)
+    if not all(torch.isfinite(v).all() for v in metrics.values()):
+        raise AssertionError("non-finite planner metrics")
+    summary = {"envs": PLANNER_ENVS, "plan_s": plan_s, "sweeps": sweeps,
+               "plan_peak_gib": peak_gb, "episode_s": episode_s,
+               "ISR": float(metrics["ISR"].mean()), "CSR": float(metrics["CSR"].mean()),
+               "mean_ep_length": float(metrics["ep_length"].mean())}
+    print("planner (config-C shapes, reduced batch): " + json.dumps(summary), flush=True)
+    return summary
 
 
 def main() -> int:
@@ -416,10 +761,20 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         print("profile: torch.profiler unavailable on this machine", flush=True)
-    if failed or record is None or main_out is None:
+    phase("policy", phase_policy, device)
+    serve_out = phase("serve", phase_serve, device)
+    try:
+        profile_serve(device)
+    except Exception:
+        traceback.print_exc()
+        print("profile: torch.profiler unavailable on this machine", flush=True)
+    phase("serve_agree", phase_serve_agree, device)
+    phase("planner", phase_planner, device)
+    if failed or record is None or main_out is None or serve_out is None:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     record["launches"] = main_out[0]
+    record["launches_by_path"] = {"main_path": main_out[0], "serve": serve_out[0]}
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

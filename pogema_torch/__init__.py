@@ -6,6 +6,10 @@ step together as batched tensor code on one device, and the packed
 observation windows come from a hand-written CUDA kernel
 (``ops/cuda_windows.py``, built from ``csrc/`` at first use). State and
 resets are bit-equal to the JAX package for the same seed.
+
+Beside the core: the policy models (``models``), flax weights loaded
+through ``interop``, the batched policy evaluator (``parallel``) and the
+BFS planner with its evaluator (``core.planner``).
 """
 
 from .core import EnvState, PogemaCore, StepResult

@@ -40,6 +40,12 @@ def _select(mask, a, b):
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
 
 
+def select_state(mask, a: EnvState, b: EnvState) -> EnvState:
+    """Per env, every leaf of ``a`` where ``mask`` [B] is set, else of ``b``."""
+    return EnvState(**{f: None if getattr(a, f) is None else _select(mask, getattr(a, f), getattr(b, f))
+                       for f in FIELDS})
+
+
 def _advance_key(keys):
     return jr.split(keys, 1)[:, 0]
 
@@ -136,6 +142,10 @@ class PogemaCore:
         return torch.as_tensor(actions, device=self.device)
 
     # -- plain (no auto-reset) -------------------------------------------
+
+    def make_key(self, seed: int) -> torch.Tensor:
+        """The key words of ``jax.random.key(seed)`` on this core's device."""
+        return jr.key(seed, self.device)
 
     def reset(self, seed_or_key, with_obs: bool = True):
         """(state, observations) for B envs from one seed or key

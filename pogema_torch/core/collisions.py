@@ -80,10 +80,11 @@ def fixpoint(m0, one_pass):
         m = nxt
 
 
-def resolve_priority(obstacles, agents_xy, active, actions):
-    desired, des_cells, cur_cells, moving = propose(obstacles, agents_xy, active, actions)
-    n = agents_xy.shape[1]
-    idx = torch.arange(n, device=agents_xy.device)
+def _priority_setup(des_cells, cur_cells, active, moving):
+    """(m0, one_pass) of the priority fixpoint, shared by the resolver
+    and its depth instrument."""
+    n = des_cells.shape[1]
+    idx = torch.arange(n, device=des_cells.device)
     later = idx[None, :] > idx[:, None]  # [i, j]: j > i
     act = active[:, None, :]
     tgt_on_cur = _eq(des_cells, cur_cells) & act  # t_i == c_j, j active
@@ -97,8 +98,34 @@ def resolve_priority(obstacles, agents_xy, active, actions):
         mj = m[:, None, :]
         return m0 & ~((e1 & mj) | (e2 & ~mj)).any(dim=2)
 
-    m = fixpoint(m0, one_pass)
+    return m0, one_pass
+
+
+def resolve_priority(obstacles, agents_xy, active, actions):
+    desired, des_cells, cur_cells, moving = propose(obstacles, agents_xy, active, actions)
+    m = fixpoint(*_priority_setup(des_cells, cur_cells, active, moving))
     return torch.where(m[..., None], desired, agents_xy)
+
+
+def priority_fixpoint_depth(obstacles, agents_xy, active, actions) -> torch.Tensor:
+    """i32[B]: per env, the Jacobi passes of :func:`resolve_priority`
+    until its fixpoint (the longest follow chain this step), counted as
+    ``pogema_tpu``'s ``while_loop`` counts them: the least k >= 1 with
+    ``m_k == m_{k-1}``. A diagnostic, off the step path; one host sync
+    per pass."""
+    _, des_cells, cur_cells, moving = propose(obstacles, agents_xy, active, actions)
+    m, one_pass = _priority_setup(des_cells, cur_cells, active, moving)
+    depth = torch.zeros(m.shape[0], dtype=torch.int32, device=m.device)
+    running = torch.ones(m.shape[0], dtype=torch.bool, device=m.device)
+    k = 0
+    while bool(running.any()):
+        nxt = one_pass(m)
+        k += 1
+        same = (nxt == m).all(dim=1)
+        depth = torch.where(running & same, k, depth)
+        running = running & ~same
+        m = nxt
+    return depth
 
 
 def resolve_block_both(obstacles, agents_xy, active, actions):

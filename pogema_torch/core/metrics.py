@@ -29,6 +29,9 @@ def episode_metrics(cfg: StaticConfig, state: EnvState) -> dict:
         succeeded = (state.agents_xy == state.targets_xy).all(dim=-1)
     else:
         succeeded = state.on_goal_ever
-    out["ISR"] = succeeded.to(torch.float32).mean(dim=-1)
+    # jit turns jnp.mean's division by N into a product with the f32
+    # reciprocal, which can round one ulp away from the quotient.
+    recip = torch.reciprocal(torch.tensor(float(succeeded.shape[-1]), device=steps.device))
+    out["ISR"] = succeeded.to(torch.float32).sum(dim=-1) * recip
     out["CSR"] = succeeded.all(dim=-1).to(torch.float32)
     return out

@@ -32,6 +32,18 @@ def target_channel(cfg: StaticConfig, agents_xy, targets_xy) -> torch.Tensor:
     return target_onehot(agents_xy, targets_xy, cfg.window)
 
 
+def packed_observation(w: int, obstacles, agents_xy, targets_xy, active, obst_w=None):
+    """f32[B, N, 3*W*W]: the packed 'default' observation, the
+    [obstacles | agents | target] blocks back to back. ``obst_w``: the
+    obstacle windows when the caller has them; else one K1 launch for
+    CUDA tensors."""
+    b, n, _ = agents_xy.shape
+    if obst_w is None:
+        obst_w = extract_windows_packed(obstacles, agents_xy.contiguous(), w)[..., : w * w]
+    return torch.cat([obst_w, pairwise_agent_windows(agents_xy, active, w).reshape(b, n, w * w),
+                      target_onehot(agents_xy, targets_xy, w).reshape(b, n, w * w)], dim=-1)
+
+
 def observe(cfg: StaticConfig, obstacles, agents_xy, targets_xy, active, obst_w=None):
     """Observations of B envs according to ``cfg.observation_type``.
 
@@ -48,15 +60,14 @@ def observe(cfg: StaticConfig, obstacles, agents_xy, targets_xy, active, obst_w=
     r = cfg.obs_radius
     w = cfg.window
     b, n, _ = agents_xy.shape
+    if cfg.observation_type == "default" and cfg.obs_layout == "packed":
+        return packed_observation(w, obstacles, agents_xy, targets_xy, active, obst_w)
     if obst_w is None:
         obst_w = obstacle_windows(cfg, obstacles, agents_xy)
     agents_w = pairwise_agent_windows(agents_xy, active, w)
 
     if cfg.observation_type == "default":
         targ_w = target_channel(cfg, agents_xy, targets_xy)
-        if cfg.obs_layout == "packed":
-            return torch.cat([obst_w, agents_w.reshape(b, n, w * w),
-                              targ_w.reshape(b, n, w * w)], dim=-1)
         return torch.stack([obst_w.reshape(b, n, w, w), agents_w, targ_w], dim=2)
 
     out = {

@@ -86,11 +86,35 @@ def bits(keys: torch.Tensor, shape) -> torch.Tensor:
     return b0 ^ b1
 
 
-def uniform(keys: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.uniform`` in [0, 1) as float32: the top 23 bits
-    become the mantissa of a float in [1, 2), minus one."""
+def uniform(keys: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in [minval, maxval) as float32: the top 23
+    bits become the mantissa of a float f in [1, 2); the draw is
+    ``max(minval, (f - 1) * (maxval - minval) + minval)``, exactly ``f - 1``
+    for the default range. XLA contracts that product and sum into one
+    fused multiply-add (one rounding); the sum is taken here in float64,
+    where it is exact for these operands, and rounded to float32 once."""
     mant = (bits(keys, shape) >> 9) | 0x3F800000
-    return mant.to(torch.int32).view(torch.float32) - 1.0
+    floats = mant.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return floats
+    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    fma = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, fma)
+
+
+def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel`` (mode 'low') in float32:
+    ``-log(-log(uniform(tiny, 1)))``."""
+    u = uniform(keys, shape, minval=torch.finfo(torch.float32).tiny, maxval=1.0)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis of f32 ``logits``
+    with one key for the whole array: ``argmax(logits + gumbel)`` (first
+    index on ties), as int64."""
+    return (gumbel(keys, tuple(logits.shape)) + logits).argmax(dim=-1)
 
 
 def bernoulli(keys: torch.Tensor, p: float, shape) -> torch.Tensor:

@@ -1,0 +1,129 @@
+"""Feedforward window-embedding actor-critic.
+
+Counterpart of ``pogema_tpu/models/embed_actor_critic.py``
+(``EmbedActorCritic``, ``embed_state_windows``). The first layer is a
+linear map of the egocentric observation ``[3, W, W]`` (obstacles,
+agents, target), so it is stored as one ``embed_kernel`` f32[3, W*W, E].
+
+Form chosen here: the packed observation ``[B*N, 3*W*W]`` is built and
+contracted against the kernel in ONE f32 GEMM ``[B*N, 3*W*W] @ [3*W*W,
+E]``. The JAX package sums three per-channel einsums instead; both
+compute the same function (``tests/test_fused.py`` gates that on the JAX
+side), up to the f32 summation order. The observation entries are 0/1
+and the kernel is rounded to ``dtype`` first, so the f32 GEMM reproduces
+JAX's ``dtype`` einsum with f32 accumulation (``preferred_element_type``);
+the sum and the bias are rounded to ``dtype`` once.
+
+The observation is ``core.obs.packed_observation``, the env's own packed
+layout: on the card its obstacle block is lanes ``[0, W*W)`` of the K1
+kernel's output (``ops.cuda_windows.extract_windows_packed``, one launch
+per ``from_state`` call), on the CPU K1's plain version.
+
+bf16 rounding points follow flax: a ``Dense(dtype=bf16)`` casts input
+and kernel to bf16, its f32-accumulated product is rounded to bf16, then
+the bias is added in bf16 (:func:`dense`); ``head_out`` runs in f32 on
+the promoted input. On the CPU this reproduces flax bit for bit wherever
+the f32 summation order agrees.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.obs import packed_observation
+from ..grid_config import NUM_ACTIONS
+
+
+def dense(x, layer: nn.Linear, dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``: input and kernel cast to ``dtype``,
+    the product accumulated in f32 and rounded to ``dtype``, then the
+    bias added in ``dtype``. The product runs as an f32 GEMM of the
+    rounded operands, which is that function exactly; a bf16 GEMM may
+    reduce in bf16 (cuBLAS's reduced-precision reduction, oneDNN's
+    blocking) and then differs from flax in the last bit."""
+    y = torch.matmul(x.to(dtype).float(), layer.weight.to(dtype).float().t()).to(dtype)
+    if layer.bias is not None:
+        y = y + layer.bias.to(dtype)
+    return y
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
+    """flax's default kernel init: truncated normal on [-2σ, 2σ] with the
+    variance 1/fan_in."""
+    std = fan_in ** -0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def linear(fan_in: int, fan_out: int, bias: bool = True, generator=None) -> nn.Linear:
+    """A Linear with flax's default init (LeCun normal, zero bias)."""
+    layer = nn.Linear(fan_in, fan_out, bias=bias)
+    with torch.no_grad():
+        lecun_normal_(layer.weight, fan_in, generator)
+        if bias:
+            layer.bias.zero_()
+    return layer
+
+
+def embed_obs(embed_kernel, bias, dtype, obs) -> torch.Tensor:
+    """dtype[..., E]: ``obs`` [..., 3*W*W] (cast to ``dtype``) against the
+    kernel rounded to ``dtype``, accumulated in f32, plus ``bias`` in f32,
+    then rounded to ``dtype`` once. Callers pass the bias rounded to
+    ``dtype`` or not, as the JAX method they mirror does."""
+    e = embed_kernel.shape[-1]
+    kernel = embed_kernel.to(dtype).float().reshape(-1, e)
+    x = obs.to(dtype).float()
+    return (torch.matmul(x, kernel) + bias.float()).to(dtype)
+
+
+class EmbedActorCritic(nn.Module):
+    """Input (either form): the egocentric view of window W = 2r+1.
+    Output: (logits f32[..., N, 5], value f32[..., N])."""
+
+    def __init__(self, window: int = 11, embed: int = 256, hidden: int = 256,
+                 dtype: torch.dtype = torch.bfloat16, generator=None):
+        super().__init__()
+        self.window, self.embed, self.hidden, self.dtype = window, embed, hidden, dtype
+        fan_in = 3 * window * window
+        self.embed_kernel = nn.Parameter(torch.empty(3, window * window, embed))
+        self.embed_bias = nn.Parameter(torch.zeros(embed))
+        with torch.no_grad():
+            nn.init.normal_(self.embed_kernel, 0.0, fan_in ** -0.5, generator=generator)
+        self.trunk = linear(embed, hidden, generator=generator)
+        # Logits and value share one output GEMM: cols 0..4 are logits,
+        # col 5 the value.
+        self.head_out = linear(hidden, NUM_ACTIONS + 1, generator=generator)
+
+    def _head(self, e):
+        x = F.relu(e)
+        x = F.relu(dense(x, self.trunk, self.dtype))
+        o = dense(x, self.head_out, torch.float32)
+        return o[..., :NUM_ACTIONS], o[..., NUM_ACTIONS]
+
+    def embed_state_windows(self, grids, agents_xy, targets_xy, active) -> torch.Tensor:
+        """dtype[B, N, E]: the first layer from raw state."""
+        obs = packed_observation(self.window, grids, agents_xy, targets_xy, active)
+        return embed_obs(self.embed_kernel, self.embed_bias.to(self.dtype), self.dtype, obs)
+
+    def forward(self, obs):
+        """obs: [..., 3, W, W] or packed [..., 3*W*W]."""
+        k = 3 * self.window * self.window
+        lead = obs.shape[:-3] if obs.shape[-1] != k else obs.shape[:-1]
+        x = obs.reshape(*lead, k)
+        return self._head(embed_obs(self.embed_kernel, self.embed_bias.to(self.dtype), self.dtype, x))
+
+    def from_state(self, grids, agents_xy, targets_xy, active):
+        """grids u8[B, P, P] padded obstacle grids; agents_xy/targets_xy
+        i32[B, N, 2] padded coordinates; active bool[B, N]. Returns
+        (logits f32[B, N, 5], value f32[B, N])."""
+        return self._head(self.embed_state_windows(grids, agents_xy, targets_xy, active))
+
+
+def init_embed_params(generator: torch.Generator, window: int, embed: int = 256,
+                      hidden: int = 256, dtype: torch.dtype = torch.bfloat16):
+    """(model, state_dict) of a freshly initialised EmbedActorCritic:
+    embed_kernel ~ N(0, (3W²)^-½), zero biases, LeCun-normal Dense
+    kernels, all drawn from ``generator``."""
+    model = EmbedActorCritic(window, embed, hidden, dtype, generator=generator)
+    return model, model.state_dict()
