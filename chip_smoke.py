@@ -35,6 +35,20 @@ result line):
      policy may first differ only at a near-tie, which is printed);
   9. planner: ``evaluate_planner`` at config-C shapes with 1024 envs:
      the fields' time and sweeps, fields against the CPU, the episode;
+ 10. train_agree: two PPO train steps of each flavour (observation-based,
+     fused 'windows', fused 'pre', recurrent) at a small f32 size on the
+     card and on the CPU from the same numpy state: integer state and key
+     bit-equal (or first differing at a near-tie of a sampled action,
+     which is printed), stats, first-minibatch gradients and parameters
+     within the tolerances stated at TRAIN_*_TOL; K1 against its plain
+     version at the update's shapes, from non-contiguous callers;
+ 11. train, the training path at full width: three recurrent PPO train
+     steps on config D (1024 envs x 128 agents, regen auto-reset) from the
+     shipped weights in bf16: stats, the split of each step's seconds,
+     peak memory, K1 launched exactly 64 + 1 + 2*8*64 times per step;
+ 12. train_ff: three fused train steps at 1024 envs x 8 agents, 16x16
+     (embed/hidden 256, 'auto' picks 'pre': no K1, the grid convolutions
+     counted), then one step with obstacle_path='windows';
 then one JSON line listing the kernels and, last, the ok line.
 
 Needs one CUDA device; exits non-zero without one, and outside a
@@ -75,6 +89,34 @@ WEIGHTS = os.path.join(ROOT, "pogema_torch", "weights", "rec128_ft.npz")
 POLICY_TOL = 1e-2
 # The planner at config-C shapes with a quarter of config C's envs.
 PLANNER_ENVS = 1024
+
+# Training at full width: the README's config-D fine-tune and its first
+# learner command.
+TRAIN_D_PPO = dict(rollout_steps=64, epochs=2, minibatches=8, lr=1.5e-4, entropy_coef=0.003)
+TRAIN_FF_GRID = dict(size=16, num_agents=8, obs_radius=5, density=0.3, on_target="restart",
+                     max_episode_steps=128)
+TRAIN_FF_PPO = dict(rollout_steps=64, epochs=2, minibatches=4)
+TRAIN_STEPS = 3
+# episode_avg_throughput (goals per step per env) of the second config-D
+# train step, the one in which every episode ends. Greedy serving of the
+# same weights gives 1.78-1.90; the rollout samples its actions, and one
+# PPO update at lr 1.5e-4 lies between. Measured 1.87 on an H100: the
+# shipped policy's entropy is 0.3, so sampling costs it little.
+TRAIN_D_THROUGHPUT = (1.2, 2.0)
+# train_agree, card against cpu, f32 model. Same ops on both devices, but
+# the card sums its GEMMs, convolutions and reductions in another order,
+# its exp/log/tanh differ in the last bits, and the backward passes of the
+# row gathers add with float atomics in no fixed order. Stats: absolute,
+# relative where the value exceeds 1. Gradients and Adam's first moment:
+# relative to the largest gradient entry. Parameters: absolutely within
+# 2 * lr * (Adam steps taken), the most that sign flips of ill-conditioned
+# first Adam steps (about -lr * sign(g), so where |g| is near eps noise
+# decides the sign) could move a weight, and 99% of all entries within
+# TRAIN_PARAM_TOL. Measured on an H100: stats 1.5e-7, gradients 4.4e-7,
+# parameters 3.3e-7 at most.
+TRAIN_STATS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-5
+TRAIN_PARAM_TOL = 1e-5
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
@@ -131,7 +173,24 @@ def phase_k1(device, b, p, n, r):
     print(f"K1 bit-equal to its plain version: B={b} P={p} M in ({n}, {2 * n}); "
           f"w in (3, 5, 11, 13) with border centres", flush=True)
 
-    m, w = 2 * n, 2 * r + 1
+    t = time_k1(device, b, p, 2 * n, r)
+    kernel.launches = saved
+    return {"name": "packed_windows", "route": "cuda", "source": "pogema_torch/csrc/windows.cu",
+            "replaces": "pogema_tpu/ops/pallas_windows.py:71", **t}
+
+
+def time_k1(device, b, p, m, r):
+    """K1 at one shape beside its byte bound, its plain version and one
+    PyTorch gather: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms}. The launches made here are not left in the count."""
+    import torch
+
+    from pogema_torch.ops import cuda_windows
+    from pogema_torch.ops.windows import extract_windows_packed_ref, packed_lanes
+
+    kernel = cuda_windows.extract_windows_packed
+    saved = kernel.launches
+    w = 2 * r + 1
     lanes = packed_lanes(w)
     grid, xy = random_windows_inputs(b, p, m, r, device, seed=7)
     out = kernel(grid, xy, w)
@@ -155,10 +214,8 @@ def phase_k1(device, b, p, n, r):
     kernel.launches = saved
     print(f"K1 at B={b} P={p} M={m} w={w}: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
           f"{nbytes} bytes), plain {plain_ms:.4f} ms, gather {library_ms:.4f} ms", flush=True)
-    return {"name": "packed_windows", "route": "cuda", "source": "pogema_torch/csrc/windows.cu",
-            "replaces": "pogema_tpu/ops/pallas_windows.py:71", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": library_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": library_ms}
 
 
 def _states_equal(a, b):
@@ -384,6 +441,7 @@ def _profile(label, fname, fn, steps):
           f"{dev_us / 1e6 / wall:.3f}", flush=True)
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / steps:9.1f} us/step  {name[:90]}", flush=True)
+    return dev_us / 1e6 / steps, kernels
 
 
 def profile_step(device, steps=8):
@@ -701,6 +759,417 @@ def phase_planner(device):
     return summary
 
 
+# -- training ----------------------------------------------------------------
+
+
+def _sync_clock():
+    """A phase_hook for the train steps and the dict it fills: seconds of
+    each part on the host clock, the device drained at every boundary."""
+    import torch
+
+    seconds, last = {}, [None]
+
+    def start():
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+
+    def hook(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[name] = now - last[0]
+        last[0] = now
+
+    return start, hook, seconds
+
+
+def _small_train_setup(flavour, device, seed):
+    """(core, model, config, make_step) of one train-step flavour at the
+    train_agree size: 8 envs x 4 agents, 8x8, r=2, T=8, 2 epochs x 2
+    minibatches, f32 model of width 32, weights from ``seed``."""
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch import parallel as tp
+    from pogema_torch.models import init_embed_params, init_params, init_recurrent_params
+
+    gc = GridConfig(seed=0, size=8, density=0.2, num_agents=4, obs_radius=2,
+                    max_episode_steps=16, on_target="restart")
+    gen = torch.Generator().manual_seed(seed)
+    path = {"fused_windows": "windows", "fused_pre": "pre"}.get(flavour, "auto")
+    cfg = tp.PPOConfig(rollout_steps=8, epochs=2, minibatches=2, obstacle_path=path)
+    if flavour == "obs":
+        core = PogemaCore(gc, num_envs=8, device=device)
+        model, _ = init_params(gen, 5, hidden=32, channels=4, dtype=torch.float32)
+        return core, model, cfg, tp.init_train_state, tp.make_train_step
+    core = PogemaCore(gc, num_envs=8, auto_reset_mode="regen", device=device)
+    if flavour == "recurrent":
+        model, _ = init_recurrent_params(gen, 5, embed=32, hidden=32, dtype=torch.float32)
+        return core, model, cfg, tp.init_recurrent_train_state, tp.make_recurrent_train_step
+    model, _ = init_embed_params(gen, 5, embed=32, hidden=32, dtype=torch.float32)
+    return core, model, cfg, tp.init_fused_train_state, tp.make_fused_train_step
+
+
+def _replay_rollout(flavour, core, model, ts, n):
+    """The rollout that a train step would make from ``ts``, again, with
+    the logits kept: (actions [n, B, N], list of n logits)."""
+    from pogema_torch.parallel import learner
+    from pogema_torch.parallel import rollout as roll
+
+    kept = []
+
+    def keep(out):
+        kept.append(out[-2])
+        return out
+
+    learner.load_params(model, ts.params)
+    if flavour == "obs":
+        fn = roll.make_rollout_fn(core, lambda o: keep(model(o)), n)
+        traj = fn(ts.env_state, ts.initial_env_state, ts.obs, ts.key)[3]
+    elif flavour == "recurrent":
+        fn = roll.make_recurrent_rollout_fn(core, lambda *a: keep(model.step_from_state(*a)), n)
+        traj = fn(ts.env_state, ts.initial_env_state, ts.h, ts.key)[3]
+    else:
+        pre = flavour == "fused_pre"
+        apply = model.from_state_pre if pre else model.from_state
+        fn = roll.make_state_rollout_fn(core, lambda *a: keep(apply(*a)), n,
+                                        make_ctx=model.grid_embed if pre else None)
+        traj = fn(ts.env_state, ts.initial_env_state, ts.key)[2]
+    return traj.actions, kept
+
+
+def _first_sampling_divergence(flavour, cores, models, states, n):
+    """(step, margin) at the first rollout step whose sampled actions
+    differ between the cpu (index 0) and the card (index 1), the margin
+    being the smallest gap between the cpu's two largest Gumbel-perturbed
+    logits among the agents that differ: a near-tie there is the only
+    divergence that a device may cause. (None, None) when the first
+    rollouts agree."""
+    from pogema_torch.core import random as jr
+
+    acts_c, logits_c = _replay_rollout(flavour, cores[0], models[0], states[0], n)
+    acts_d, _ = _replay_rollout(flavour, cores[1], models[1], states[1], n)
+    key = states[0].key
+    for t in range(n):
+        key, k_act = jr.split(key)
+        differ = acts_c[t] != acts_d[t].cpu()
+        if differ.any():
+            noisy = logits_c[t] + jr.gumbel(k_act, tuple(logits_c[t].shape))
+            return t, float(_top2_margin(noisy)[differ].min())
+    return None, None
+
+
+def check_k1_update_shapes(device):
+    """K1 against its plain version at the shapes the updates give it."""
+    import torch
+
+    from pogema_torch.ops import cuda_windows
+    from pogema_torch.ops.windows import extract_windows_packed_ref
+
+    kernel = cuda_windows.extract_windows_packed
+    # The update hands K1 slices of mixed or env-major tensors: the wrapper
+    # refuses a view, and the callers' contiguous copies give the plain
+    # version's result. Recurrent replay at config D (B = 128, M = 128), the
+    # fused 'windows' loss of train_ff (B = 16384, M = 8).
+    for b, p, m, r in ((128, 74, 128, 5), (16384, 26, 8, 5)):
+        grid, _ = random_windows_inputs(b, p, m, r, device, seed=b)
+        g = torch.Generator().manual_seed(b)
+        xy_all = torch.randint(r, p - r, (b, 4, m, 2), generator=g, dtype=torch.int32).to(device)
+        view = xy_all[:, 2]  # a time slice of an env-major [B, T, M, 2] tensor
+        try:
+            kernel(grid, view, 2 * r + 1)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("K1's wrapper took a non-contiguous xy")
+        grid_view = torch.stack([grid, grid], dim=1)[:, 1]  # a minibatch column of mixed grids
+        got = kernel(grid_view.contiguous(), view.contiguous(), 2 * r + 1)
+        if not torch.equal(got, extract_windows_packed_ref(grid_view, view, 2 * r + 1)):
+            raise AssertionError(f"K1 differs from its plain version at B={b} M={m}")
+    print("K1 bit-equal to its plain version at the update's shapes (B=128 M=128 P=74; "
+          "B=16384 M=8 P=26) from contiguous copies of views; a view itself is refused", flush=True)
+
+
+def phase_train_agree(device):
+    """Two train steps of each flavour on the card and on the cpu from
+    the same numpy state (f32 model, small size), after K1 at the
+    update's shapes."""
+    import numpy as np
+    import torch
+
+    from pogema_torch.interop import train_state_from_numpy, train_state_to_numpy
+    from pogema_torch.ops import cuda_windows
+
+    if device != "cpu":
+        check_k1_update_shapes(device)
+    kernel = cuda_windows.extract_windows_packed
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # f32 convolutions in f32, as on the cpu
+    report = []
+    try:
+        for flavour in ("obs", "fused_windows", "fused_pre", "recurrent"):
+            agreed = False
+            for seed in (0, 1, 2):
+                core_c, model_c, cfg, init, make = _small_train_setup(flavour, "cpu", seed)
+                core_d, model_d = _small_train_setup(flavour, device, seed)[:2]
+                ts_c, tx = init(core_c, model_c, None, cfg, core_c.make_key(seed + 1))
+                arrays = train_state_to_numpy(ts_c)
+                ts_d = train_state_from_numpy(arrays, device, torch.float32)
+                grads = {"cpu": [], device: []}
+                steps = {d: make(c, m, cfg, tx, grad_hook=lambda e, i, loss, g, d=d:
+                                 grads[d].append({k: v.detach().cpu() for k, v in g.items()}))
+                         for d, c, m in (("cpu", core_c, model_c), (device, core_d, model_d))}
+                before = kernel.launches
+                starts, stats = [], []
+                for _ in range(2):
+                    starts.append((ts_c, ts_d))
+                    ts_c, st_c = steps["cpu"](ts_c)
+                    ts_d, st_d = steps[device](ts_d)
+                    stats.append((st_c, st_d))
+                used_k1 = kernel.launches - before
+                if device != "cpu" and (used_k1 > 0) != (flavour != "fused_pre"):
+                    raise AssertionError(f"{flavour}: {used_k1} K1 launches on the card")
+                same = (_states_equal(ts_c.env_state, ts_d.env_state)
+                        and torch.equal(ts_c.key, ts_d.key.cpu()))
+                if not same:
+                    for i, pair in enumerate(starts):
+                        t, margin = _first_sampling_divergence(
+                            flavour, (core_c, core_d), (model_c, model_d), pair, cfg.rollout_steps)
+                        if t is not None:
+                            break
+                    report.append(f"{flavour}/seed {seed}: first differs in train step {i} at "
+                                  f"rollout step {t}, perturbed-logit margin {margin}")
+                    if t is not None and margin >= 1e-5:
+                        raise AssertionError(f"{flavour} on {device} differs from cpu beyond a "
+                                             f"near-tie: step {t}, margin {margin}")
+                    if t is None:
+                        raise AssertionError(f"{flavour} on {device}: integer state differs from "
+                                             f"cpu after equal rollouts")
+                    continue
+                worst_stat = 0.0
+                for st_c, st_d in stats:
+                    for k in st_c:
+                        a, b_ = float(st_c[k]), float(st_d[k])
+                        if not np.isfinite(b_):
+                            raise AssertionError(f"{flavour}: stat {k} on {device} is {b_}")
+                        worst_stat = max(worst_stat, abs(a - b_) / max(1.0, abs(a)))
+                g_c, g_d = grads["cpu"][0], grads[device][0]
+                scale = max(float(v.abs().max()) for v in g_c.values())
+                worst_grad = max(float((g_c[k] - g_d[k]).abs().max()) for k in g_c) / scale
+                worst_mu = max(float((ts_c.opt_state["mu"][k] - ts_d.opt_state["mu"][k].cpu())
+                                     .abs().max()) for k in g_c) / scale
+                diffs = torch.cat([(ts_c.params[k] - ts_d.params[k].cpu()).abs().flatten()
+                                   for k in ts_c.params])
+                adam_steps = 2 * cfg.epochs * cfg.minibatches
+                share = float((diffs <= TRAIN_PARAM_TOL).float().mean())
+                report.append(f"{flavour}/seed {seed}: integer state and key bit-equal, "
+                              f"{used_k1} K1 launches; stats {worst_stat:.2e}, first-minibatch "
+                              f"gradients {worst_grad:.2e}, Adam mu {worst_mu:.2e} (of the largest "
+                              f"gradient entry), parameters max {float(diffs.max()):.2e}, "
+                              f"{share:.4f} within {TRAIN_PARAM_TOL}")
+                if (worst_stat > TRAIN_STATS_TOL or worst_grad > TRAIN_GRAD_TOL
+                        or worst_mu > TRAIN_GRAD_TOL or share < 0.99
+                        or float(diffs.max()) > 2 * cfg.lr * adam_steps):
+                    raise AssertionError(f"{flavour} on {device} differs from cpu beyond the "
+                                         f"tolerance: {report[-1]}")
+                agreed = True
+                break
+            if not agreed:
+                raise AssertionError(f"{flavour}: no seed gave equal trajectories: {report}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+        print("train_agree (card vs cpu, f32, two train steps; tolerances: stats "
+              f"{TRAIN_STATS_TOL}, gradients {TRAIN_GRAD_TOL}, parameters 99% within "
+              f"{TRAIN_PARAM_TOL}):\n  " + "\n  ".join(report), flush=True)
+
+
+def _run_train_steps(label, core, model, cfg, init, make, key_seed, steps, expect_k1,
+                     expect_finished, device):
+    """``steps`` train steps with the per-step prints and checks shared by
+    the training phases: finite stats, entropy in (0, ln 5), the expected
+    episodes finished and K1 launches, finite gradients, changed and
+    finite parameters that the module also holds, the state invariants.
+    Returns (K1 launches, list of per-step dicts)."""
+    import math
+
+    import torch
+
+    from pogema_torch.models import EmbedActorCritic
+    from pogema_torch.ops import cuda_windows
+
+    kernel = cuda_windows.extract_windows_packed
+    start, hook, seconds = _sync_clock()
+    finite = [torch.ones((), dtype=torch.bool, device=device)]
+
+    def grad_hook(epoch, i, loss, grads):
+        for g in grads.values():
+            finite[0] = finite[0] & torch.isfinite(g).all()
+
+    ts, tx = init(core, model, None, cfg, core.make_key(key_seed))
+    step = make(core, model, cfg, tx, grad_hook=grad_hook, phase_hook=hook)
+    kernel.launches = 0
+    out = []
+    for i in range(steps):
+        before, convs = kernel.launches, EmbedActorCritic.grid_embed.calls
+        old = ts.params
+        torch.cuda.reset_peak_memory_stats()
+        start()
+        ts, stats = step(ts)
+        torch.cuda.synchronize()
+        total = sum(seconds.values())
+        host = {k: float(v) for k, v in stats.items()}
+        rec = {"step": i, "stats": host, "seconds": dict(seconds), "seconds_total": total,
+               "env_steps_per_s": core.num_envs * cfg.rollout_steps / total,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "k1_launches": kernel.launches - before,
+               "grid_convs": EmbedActorCritic.grid_embed.calls - convs}
+        print(f"{label} step {i}: " + json.dumps(rec), flush=True)
+        out.append(rec)
+        if not all(math.isfinite(v) for v in host.values()):
+            raise AssertionError(f"{label} step {i}: non-finite stats {host}")
+        if not 0.0 < host["entropy"] < math.log(5):
+            raise AssertionError(f"{label} step {i}: entropy {host['entropy']} outside (0, ln 5)")
+        if host["episodes_finished"] != expect_finished[i]:
+            raise AssertionError(f"{label} step {i}: {host['episodes_finished']} episodes "
+                                 f"finished, expected {expect_finished[i]}")
+        if rec["k1_launches"] != expect_k1:
+            raise AssertionError(f"{label} step {i}: K1 launched {rec['k1_launches']} times, "
+                                 f"expected {expect_k1}")
+        if not bool(finite[0]):
+            raise AssertionError(f"{label} step {i}: a gradient is not finite")
+        if not any(not torch.equal(old[k], ts.params[k]) for k in old):
+            raise AssertionError(f"{label} step {i}: the parameters did not change")
+        if not all(torch.isfinite(v).all() for v in ts.params.values()):
+            raise AssertionError(f"{label} step {i}: a parameter is not finite")
+        check_state_invariants(ts.env_state)
+        own = dict(model.named_parameters())
+        if not all(torch.equal(own[k], ts.params[k]) for k in own):
+            raise AssertionError(f"{label}: the module does not hold the new parameters")
+    return kernel.launches, out
+
+
+def phase_train(device):
+    """The training path at full width: recurrent PPO on config D (1024
+    envs x 128 agents, 64x64, r=5, LifeLong, regen auto-reset) from the
+    shipped rec128_ft weights in bf16, three train steps of T = 64, 2
+    epochs x 8 minibatches. Every episode ends in the second step (step
+    128), where regen makes every map anew."""
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch import parallel as tp
+    from pogema_torch.interop import load_policy
+
+    core = PogemaCore(GridConfig(seed=0, **CONFIG_D), num_envs=NUM_ENVS_D,
+                      auto_reset_mode="regen", device=device)
+    model = load_policy(WEIGHTS, device=device)
+    cfg = tp.PPOConfig(**TRAIN_D_PPO)
+    t, e, m = cfg.rollout_steps, cfg.epochs, cfg.minibatches
+    launches, recs = _run_train_steps(
+        "train (config D, rec128_ft bf16)", core, model, cfg, tp.init_recurrent_train_state,
+        tp.make_recurrent_train_step, 1, TRAIN_STEPS, t + 1 + e * m * t,
+        [0.0, float(NUM_ENVS_D), 0.0], device)
+    thr = recs[1]["stats"]["episode_avg_throughput"]
+    lo, hi = TRAIN_D_THROUGHPUT
+    if not lo <= thr <= hi:
+        raise AssertionError(f"episode_avg_throughput of the second step {thr} outside the "
+                             f"predicted range [{lo}, {hi}]")
+    best = min(recs, key=lambda r: r["seconds_total"])
+    summary = {"seconds_per_step": [r["seconds_total"] for r in recs], "best_split_s": best["seconds"],
+               "env_steps_per_s_best": best["env_steps_per_s"],
+               "peak_gib": max(r["peak_gib"] for r in recs), "k1_launches_per_step": launches / TRAIN_STEPS,
+               "episode_avg_throughput_step1": thr}
+    print("train summary: " + json.dumps(summary), flush=True)
+    return launches, summary
+
+
+def phase_train_ff(device):
+    """The feedforward fused learner at 1024 envs x 8 agents, 16x16, r=5,
+    embed/hidden 256, T = 64, 2 epochs x 4 minibatches, random bf16 init:
+    three steps with obstacle_path='auto' (picks 'pre': no K1, two grid
+    convolutions per rollout and one per loss), then one step with
+    'windows' (K1 once per rollout step, once for the bootstrap, once per
+    loss). Returns ((launches 'pre', launches 'windows'), summary)."""
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch import parallel as tp
+    from pogema_torch.models import init_embed_params
+
+    out, launches = {}, {}
+    for path, steps in (("auto", TRAIN_STEPS), ("windows", 1)):
+        core = PogemaCore(GridConfig(seed=0, **TRAIN_FF_GRID), num_envs=1024,
+                          auto_reset_mode="regen", device=device)
+        model, _ = init_embed_params(torch.Generator().manual_seed(0), core.cfg.window,
+                                     embed=256, hidden=256)
+        cfg = tp.PPOConfig(obstacle_path=path, **TRAIN_FF_PPO)
+        t, e, m = cfg.rollout_steps, cfg.epochs, cfg.minibatches
+        expect_k1 = 0 if path == "auto" else t + 1 + e * m
+        launches[path], recs = _run_train_steps(
+            f"train_ff ({path})", core, model, cfg, tp.init_fused_train_state,
+            tp.make_fused_train_step, 1, steps, expect_k1, [0.0, 1024.0, 0.0], device)
+        convs = [r["grid_convs"] for r in recs]
+        want_convs = 2 + e * m if path == "auto" else 0
+        if any(c != want_convs for c in convs):
+            raise AssertionError(f"train_ff ({path}): {convs} grid convolutions per step, "
+                                 f"expected {want_convs}")
+        best = min(recs, key=lambda r: r["seconds_total"])
+        out[path] = {"seconds_per_step": [r["seconds_total"] for r in recs],
+                     "best_split_s": best["seconds"], "env_steps_per_s_best": best["env_steps_per_s"],
+                     "peak_gib": max(r["peak_gib"] for r in recs), "grid_convs_per_step": convs[0],
+                     "k1_launches_per_step": launches[path] / steps}
+    print("train_ff summary: " + json.dumps(out), flush=True)
+    return (launches["auto"], launches["windows"]), out
+
+
+def profile_train(device):
+    """The kernel table of one recurrent train step at config-D shapes with
+    T = 16 and one epoch (profile_train_d.txt beside the other kernel
+    tables): every kernel at the full step's shapes, an eighth of its
+    passes, so that the trace stays small. The same step is timed once
+    with the profiler off, for a busy share that the tracing does not
+    dilute."""
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch import parallel as tp
+    from pogema_torch.interop import load_policy
+
+    core = PogemaCore(GridConfig(seed=0, **CONFIG_D), num_envs=NUM_ENVS_D,
+                      auto_reset_mode="regen", device=device)
+    model = load_policy(WEIGHTS, device=device)
+    cfg = tp.PPOConfig(**dict(TRAIN_D_PPO, rollout_steps=16, epochs=1))
+    ts, tx = tp.init_recurrent_train_state(core, model, None, cfg, core.make_key(2))
+    step = tp.make_recurrent_train_step(core, model, cfg, tx)
+    box = [step(ts)[0]]
+
+    def one():
+        box[0] = step(box[0])[0]
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    dev_s, kernels = _profile("config-D recurrent train step (T=16, 1 epoch x 8 minibatches)",
+                              "profile_train_d.txt", one, 1)
+    k1_us = sum(us for name, us in kernels.items() if "packed_windows_kernel" in name)
+    t, m = cfg.rollout_steps, cfg.minibatches
+    print(f"the same step with the profiler off: wall {plain_wall * 1e3:.1f} ms, so device busy "
+          f"share {dev_s / plain_wall:.3f}; K1 took {k1_us:.1f} us of device time over "
+          f"{t + 1} launches at B={NUM_ENVS_D} and {m * t} at B={NUM_ENVS_D // m}", flush=True)
+
+
+def phase_k1_shapes(device):
+    """K1 beside its bound, its plain version and the gather at the
+    config-D serving shape and at the recurrent update's shape (config
+    C's is in the kernel record itself)."""
+    p = CONFIG_D["size"] + 2 * CONFIG_D["obs_radius"]
+    n, r = CONFIG_D["num_agents"], CONFIG_D["obs_radius"]
+    out = {}
+    for name, b in (("serve_config_d", NUM_ENVS_D),
+                    ("train_update_config_d", NUM_ENVS_D // TRAIN_D_PPO["minibatches"])):
+        out[name] = dict(B=b, M=n, P=p, **time_k1(device, b, p, n, r))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -770,11 +1239,25 @@ def main() -> int:
         print("profile: torch.profiler unavailable on this machine", flush=True)
     phase("serve_agree", phase_serve_agree, device)
     phase("planner", phase_planner, device)
-    if failed or record is None or main_out is None or serve_out is None:
+    phase("train_agree", phase_train_agree, device)
+    train_out = phase("train", phase_train, device)
+    train_ff_out = phase("train_ff", phase_train_ff, device)
+    try:
+        profile_train(device)
+    except Exception:
+        traceback.print_exc()
+        print("profile: torch.profiler unavailable on this machine", flush=True)
+
+    shapes = phase("k1_shapes", phase_k1_shapes, device)
+    if (failed or record is None or main_out is None or serve_out is None or train_out is None
+            or train_ff_out is None):
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     record["launches"] = main_out[0]
-    record["launches_by_path"] = {"main_path": main_out[0], "serve": serve_out[0]}
+    record["launches_by_path"] = {"main_path": main_out[0], "serve": serve_out[0],
+                                  "train": train_out[0], "train_ff": train_ff_out[0][0],
+                                  "train_ff_windows": train_ff_out[0][1]}
+    record["other_shapes"] = shapes
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

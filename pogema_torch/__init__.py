@@ -8,8 +8,11 @@ observation windows come from a hand-written CUDA kernel
 resets are bit-equal to the JAX package for the same seed.
 
 Beside the core: the policy models (``models``), flax weights loaded
-through ``interop``, the batched policy evaluator (``parallel``) and the
-BFS planner with its evaluator (``core.planner``).
+through ``interop``, the batched policy evaluator and the PPO learner
+(``parallel``: rollouts, GAE and the observation-based, fused and
+recurrent train steps, with the optimizer in ``parallel.optim``),
+checkpoints (``utils.checkpoint``) and the BFS planner with its
+evaluator (``core.planner``).
 """
 
 from .core import EnvState, PogemaCore, StepResult

@@ -10,6 +10,13 @@ Flax params (the ``{'params': ...}`` nest of a restored checkpoint)
 become a policy module with ``params_from_flax``; ``load_policy`` reads
 the same leaves from an ``.npz`` (``flatten_params`` writes one), so a
 machine without JAX or orbax can load the shipped weights.
+``params_to_flax`` goes the other way, so a policy trained by the port
+loads in the JAX package.
+
+The learner's state crosses likewise: ``train_state_from_numpy`` builds a
+``TrainState`` or ``RecurrentTrainState`` from the numpy leaves of a JAX
+one (params and Adam moments as flax nests), ``train_state_to_numpy``
+turns the port's back.
 """
 
 from __future__ import annotations
@@ -75,12 +82,55 @@ def unflatten_params(flat) -> dict:
     return tree
 
 
-def _linear_state(prefix: str, leaf: dict) -> dict:
-    """A flax Dense ``{kernel [in, out], bias?}`` as Linear weight [out, in]."""
-    out = {f"{prefix}.weight": np.asarray(leaf["kernel"]).T}
-    if "bias" in leaf:
-        out[f"{prefix}.bias"] = np.asarray(leaf["bias"])
+def state_from_flax(tree: dict) -> dict:
+    """A flax param nest (or a nest shaped like one: gradients, Adam
+    moments) as the port's flat ``{name: f32 array}``: Dense kernels
+    [in, out] become Linear weights [out, in], conv kernels HWIO become
+    OIHW, biases and the ``embed_*`` leaves keep their layout, and the
+    nesting becomes dotted names (``gru.hn.weight``)."""
+    out = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+                continue
+            a = np.asarray(v, np.float32)
+            if k == "kernel":
+                out[f"{prefix}weight"] = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            else:
+                out[f"{prefix}{k}"] = a
+    walk(tree["params"] if "params" in tree else tree, "")
     return out
+
+
+def state_to_flax(state: dict) -> dict:
+    """Inverse of :func:`state_from_flax`: ``{'params': nest of numpy}``
+    from the port's flat names (tensors or arrays)."""
+    tree: dict = {}
+    for name, v in state.items():
+        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        *parents, leaf = name.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        if leaf == "weight":
+            node["kernel"] = np.ascontiguousarray(
+                a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T)
+        else:
+            node[leaf] = a
+    return {"params": tree}
+
+
+def params_to_flax(model_or_params) -> dict:
+    """The ``{'params': {...}}`` nest of numpy arrays that the flax
+    modules of ``pogema_tpu`` take, from a policy module of the port or
+    from a train state's ``params`` dict: the inverse of
+    :func:`params_from_flax`, so that a policy trained by the port loads
+    on the JAX side unchanged."""
+    if isinstance(model_or_params, dict):
+        return state_to_flax(model_or_params)
+    return state_to_flax(dict(model_or_params.named_parameters()))
 
 
 def params_from_flax(tree: dict, dtype: torch.dtype = torch.bfloat16):
@@ -95,34 +145,20 @@ def params_from_flax(tree: dict, dtype: torch.dtype = torch.bfloat16):
     """
     from .models import ActorCritic, EmbedActorCritic, RecurrentEmbedActorCritic
 
-    p = tree["params"] if "params" in tree else tree
-    sd = {}
-    if "embed_kernel" in p:
-        ek = np.asarray(p["embed_kernel"])  # [3, W*W, E]
-        window = int(round(ek.shape[1] ** 0.5))
-        sd["embed_kernel"] = ek
-        sd["embed_bias"] = np.asarray(p["embed_bias"])
-        sd.update(_linear_state("head_out", p["head_out"]))
-        if "gru" in p:
-            hidden = int(np.asarray(p["gru"]["hr"]["kernel"]).shape[1])
-            model = RecurrentEmbedActorCritic(window, int(ek.shape[2]), hidden, dtype)
-            for name, leaf in p["gru"].items():
-                sd.update(_linear_state(f"gru.{name}", leaf))
+    sd = state_from_flax(tree)
+    if "embed_kernel" in sd:
+        _, ww, embed = sd["embed_kernel"].shape  # [3, W*W, E]
+        window = int(round(ww ** 0.5))
+        if "gru.hr.weight" in sd:
+            model = RecurrentEmbedActorCritic(window, embed, sd["gru.hr.weight"].shape[0], dtype)
         else:
-            hidden = int(np.asarray(p["trunk"]["kernel"]).shape[1])
-            model = EmbedActorCritic(window, int(ek.shape[2]), hidden, dtype)
-            sd.update(_linear_state("trunk", p["trunk"]))
+            model = EmbedActorCritic(window, embed, sd["trunk.weight"].shape[0], dtype)
     else:
-        channels = int(np.asarray(p["conv1"]["kernel"]).shape[-1])
-        trunk_in, hidden = np.asarray(p["trunk"]["kernel"]).shape
+        channels = sd["conv1.weight"].shape[0]
+        hidden, trunk_in = sd["trunk.weight"].shape
         window = int(round((trunk_in // channels) ** 0.5))
         model = ActorCritic(window, int(hidden), channels, dtype)
-        for name in ("conv1", "conv2"):
-            sd[f"{name}.weight"] = np.asarray(p[name]["kernel"]).transpose(3, 2, 0, 1)
-            sd[f"{name}.bias"] = np.asarray(p[name]["bias"])
-        for name in ("trunk", "policy", "value"):
-            sd.update(_linear_state(name, p[name]))
-    state_dict = {k: torch.tensor(np.asarray(v), dtype=torch.float32) for k, v in sd.items()}
+    state_dict = {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}
     model.load_state_dict(state_dict)  # strict: every leaf accounted for
     return model, state_dict
 
@@ -138,3 +174,62 @@ def load_policy(path_or_tree, device="cuda", dtype: torch.dtype = torch.bfloat16
             tree = unflatten_params({k: z[k] for k in z.files})
     model, _ = params_from_flax(tree, dtype)
     return model.to(device).eval()
+
+
+# -- learner state ----------------------------------------------------------
+
+
+def opt_state_from_optax(adam: dict, device) -> dict:
+    """The port's optimizer state from optax's ``ScaleByAdamState`` given
+    as numpy: ``{"count": int, "mu": flax nest, "nu": flax nest}`` (of the
+    chain ``clip_by_global_norm, adam`` only that element holds state)."""
+    def moments(tree):
+        return {k: torch.tensor(v, dtype=torch.float32, device=device)
+                for k, v in state_from_flax(tree).items()}
+
+    return {"count": torch.tensor(int(np.asarray(adam["count"])), dtype=torch.int32, device=device),
+            "mu": moments(adam["mu"]), "nu": moments(adam["nu"])}
+
+
+def opt_state_to_numpy(opt_state: dict) -> dict:
+    """Inverse of :func:`opt_state_from_optax`: the moments as flax nests."""
+    return {"count": opt_state["count"].cpu().numpy(),
+            "mu": state_to_flax(opt_state["mu"]), "nu": state_to_flax(opt_state["nu"])}
+
+
+def train_state_from_numpy(arrays: dict, device, h_dtype: torch.dtype = torch.bfloat16):
+    """A ``TrainState`` (or, when ``arrays`` has ``"h"``, a
+    ``RecurrentTrainState``) on ``device`` from numpy: ``params`` a flax
+    nest, ``opt_state`` as :func:`opt_state_from_optax` takes it,
+    ``env_state`` / ``initial_env_state`` as :func:`state_from_numpy`
+    takes them, ``key`` the int64 key words, ``obs`` an array or None,
+    ``h`` a float array cast to ``h_dtype``. This is how a test starts
+    both packages from one JAX ``init_*_train_state``."""
+    from .parallel.learner import RecurrentTrainState, TrainState
+
+    common = dict(
+        params={k: torch.tensor(v, dtype=torch.float32, device=device)
+                for k, v in state_from_flax(arrays["params"]).items()},
+        opt_state=opt_state_from_optax(arrays["opt_state"], device),
+        env_state=state_from_numpy(arrays["env_state"], device),
+        initial_env_state=state_from_numpy(arrays["initial_env_state"], device),
+        key=torch.as_tensor(np.asarray(arrays["key"]).astype(np.int64), device=device))
+    if "h" in arrays:
+        h = torch.as_tensor(np.asarray(arrays["h"], np.float32), device=device).to(h_dtype)
+        return RecurrentTrainState(h=h, **common)
+    obs = arrays.get("obs")
+    obs = None if obs is None else torch.as_tensor(np.asarray(obs), device=device)
+    return TrainState(obs=obs, **common)
+
+
+def train_state_to_numpy(ts) -> dict:
+    """Inverse of :func:`train_state_from_numpy` (``h`` as float32)."""
+    out = {"params": state_to_flax(ts.params), "opt_state": opt_state_to_numpy(ts.opt_state),
+           "env_state": state_to_numpy(ts.env_state),
+           "initial_env_state": state_to_numpy(ts.initial_env_state),
+           "key": ts.key.cpu().numpy()}
+    if hasattr(ts, "h"):
+        out["h"] = ts.h.float().cpu().numpy()
+    else:
+        out["obs"] = None if ts.obs is None else ts.obs.float().cpu().numpy()
+    return out

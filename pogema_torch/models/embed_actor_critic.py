@@ -24,6 +24,18 @@ and kernel to bf16, its f32-accumulated product is rounded to bf16, then
 the bias is added in bf16 (:func:`dense`); ``head_out`` runs in f32 on
 the promoted input. On the CPU this reproduces flax bit for bit wherever
 the f32 summation order agrees.
+
+Under autograd the same casts round the gradients where flax's do: in
+:func:`dense` and :func:`embed_obs` the cotangent of a ``dtype`` output
+is ``dtype``, the two products of the backward pass run in f32 on it, and
+``dW`` and ``dx`` are rounded to ``dtype`` by the backward of
+``.to(dtype).float()`` before the f32 parameter (or the layer below) sees
+them, as the transposes of flax's bf16 ``dot_general`` do. With
+``dtype=float32`` every cast is the identity.
+
+A third entry point, ``from_state_pre``, reads a precomputed
+``grid_embed`` (one VALID conv of the static grids) for the obstacle
+term; the learner's ``'pre'`` path uses it, and it launches no K1.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from torch import nn
 
 from ..core.obs import packed_observation
 from ..grid_config import NUM_ACTIONS
+from ..ops.windows import pairwise_agent_windows, target_onehot
 
 
 def dense(x, layer: nn.Linear, dtype) -> torch.Tensor:
@@ -113,11 +126,76 @@ class EmbedActorCritic(nn.Module):
         x = obs.reshape(*lead, k)
         return self._head(embed_obs(self.embed_kernel, self.embed_bias.to(self.dtype), self.dtype, x))
 
+    def grid_embed(self, grids) -> torch.Tensor:
+        """dtype[B, Sr, Sc, E]: the obstacle term of the first layer for
+        every window centre of the logical map, ``(Sr, Sc) = (Pr - 2r,
+        Pc - 2r)``: ``e_grid[b, x-r, y-r] = sum_ij grids[b, x-r+i, y-r+j]
+        * k_obst[i, j]``, a VALID convolution of the padded grid u8[B, Pr,
+        Pc] with the obstacle block of ``embed_kernel``. Operands rounded
+        to ``dtype``, accumulated in f32, rounded to ``dtype`` once (the
+        JAX method's ``dtype`` in, ``dtype`` out). Maps are static for a
+        whole rollout, so this runs once per rollout and once per
+        minibatch loss, where the obstacle kernel's gradient flows
+        through it. ``grid_embed.calls`` counts the convolutions."""
+        w, e = self.window, self.embed
+        k = self.embed_kernel[0].to(self.dtype).float().t().reshape(e, 1, w, w)
+        g = grids.to(self.dtype).float()[:, None]  # [B, 1, Pr, Pc]
+        EmbedActorCritic.grid_embed.calls += 1
+        return F.conv2d(g, k).permute(0, 2, 3, 1).to(self.dtype)
+
+    def from_state_pre(self, e_grid, agents_xy, targets_xy, active):
+        """Policy from a precomputed :meth:`grid_embed`: the same function
+        as :meth:`from_state` up to f32 summation order.
+
+        e_grid dtype[B, Sr, Sc, E]; agents_xy/targets_xy i32[..., B, N, 2]
+        padded coordinates, optionally with leading time axes (the env
+        axis must align with e_grid's); active bool[..., B, N]. Returns
+        (logits f32[..., B, N, 5], value f32[..., B, N]).
+
+        The JAX method selects with one-hot matmuls; here the obstacle
+        term is a row gather ``e_grid[b, cell]`` (zero where the cell
+        index falls outside ``[0, Sr*Sc)``, as a one-hot with no match
+        gives), and the agent and target terms are the rows of the
+        stacked ``[2*w*w, E]`` kernel table (agents block, then target
+        block) summed per agent, taken as one GEMM of the per-agent row
+        counts (``ops.windows.pairwise_agent_windows`` and
+        ``target_onehot``) against the table. The counts apply the
+        in-window mask before the flat index can alias (``dx`` in range
+        with ``dy`` out of range), leave inactive neighbours invisible,
+        include the agent itself and clip the target to the border.
+        Rounding: ``e_grid`` and the table in ``dtype``; the three terms
+        and the unrounded f32 bias summed in f32; one rounding to
+        ``dtype``."""
+        w, emb = self.window, self.embed
+        r = w // 2
+        b, sr, sc = e_grid.shape[0], e_grid.shape[-3], e_grid.shape[-2]
+        rows = e_grid.to(self.dtype).reshape(b * sr * sc, emb)
+        lead = agents_xy.shape[:-2]
+        n = agents_xy.shape[-2]
+        cell = (agents_xy[..., 0].long() - r) * sc + (agents_xy[..., 1].long() - r)
+        inside = (cell >= 0) & (cell < sr * sc)
+        env = torch.arange(b, device=cell.device).reshape(b, 1) * (sr * sc)
+        e_obst = rows[(cell.clamp(0, sr * sc - 1) + env).reshape(-1)].float()
+        e_obst = e_obst.reshape(*lead, n, emb) * inside[..., None]
+
+        axy = agents_xy.reshape(-1, n, 2)
+        counts = torch.cat([
+            pairwise_agent_windows(axy, active.reshape(-1, n), w).reshape(-1, n, w * w),
+            target_onehot(axy, targets_xy.reshape(-1, n, 2), w).reshape(-1, n, w * w)], dim=-1)
+        table = self.embed_kernel[1:].to(self.dtype).float().reshape(2 * w * w, emb)
+        e_rest = torch.matmul(counts, table).reshape(*lead, n, emb)
+
+        e = (e_obst + e_rest + self.embed_bias.float()).to(self.dtype)
+        return self._head(e)
+
     def from_state(self, grids, agents_xy, targets_xy, active):
         """grids u8[B, P, P] padded obstacle grids; agents_xy/targets_xy
         i32[B, N, 2] padded coordinates; active bool[B, N]. Returns
         (logits f32[B, N, 5], value f32[B, N])."""
         return self._head(self.embed_state_windows(grids, agents_xy, targets_xy, active))
+
+
+EmbedActorCritic.grid_embed.calls = 0
 
 
 def init_embed_params(generator: torch.Generator, window: int, embed: int = 256,

@@ -61,6 +61,8 @@ def extract_windows_packed(grid: torch.Tensor, xy: torch.Tensor, w: int) -> torc
     if 8 * m + 4 * lanes + p * p > MAX_SMEM:
         raise ValueError(f"a {p}x{p} grid with {m} agents exceeds the 227 KB of shared memory of a block")
     out = torch.empty(b, m, lanes, dtype=torch.float32, device=grid.device)
+    if b == 0 or m == 0:  # nothing to launch (and nothing counted)
+        return out
     fn = _lib()
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream

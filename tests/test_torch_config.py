@@ -78,10 +78,17 @@ def _imported_roots(path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((ROOT / "pogema_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "pogema_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "train_ppo_cuda.py"]
     assert len(files) > 10
+    names = {str(p.relative_to(ROOT)) for p in files}
+    for must in ("pogema_torch/parallel/learner.py", "pogema_torch/parallel/rollout.py",
+                 "pogema_torch/parallel/optim.py", "pogema_torch/utils/checkpoint.py",
+                 "examples/train_ppo_cuda.py", "chip_smoke.py"):
+        assert must in names, must
     for path in files:
-        bad = {m for m in _imported_roots(path)} & {"jax", "jaxlib", "flax", "pogema_tpu"}
+        bad = {m for m in _imported_roots(path)} & {"jax", "jaxlib", "flax", "optax", "orbax",
+                                                    "pogema_tpu"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 

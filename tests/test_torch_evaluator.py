@@ -137,9 +137,11 @@ def test_evaluator_reset_matches_core_reset_and_raises_when_unplaceable():
 
 def test_port_modules_import_no_jax():
     code = ("import sys; import pogema_torch.models, pogema_torch.parallel, "
+            "pogema_torch.parallel.learner, pogema_torch.parallel.rollout, "
+            "pogema_torch.parallel.optim, pogema_torch.utils.checkpoint, "
             "pogema_torch.core.planner, pogema_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'orbax', 'pogema_tpu')]; "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pogema_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,

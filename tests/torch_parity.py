@@ -95,3 +95,43 @@ def run_autoreset_parity(grid_kwargs, num_envs, steps, seed, **core_kwargs):
         assert_trees_equal(jm, tm, f"metrics, step {t}")
         finished += int(np.asarray(jd).sum())
     return finished
+
+
+def np_tree(tree):
+    """Every leaf of a JAX pytree as a numpy array."""
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def jax_train_state_to_numpy(ts) -> dict:
+    """A JAX TrainState / RecurrentTrainState as the numpy nest that
+    ``pogema_torch.interop.train_state_from_numpy`` takes. Of the optax
+    chain (clip, adam) only adam's ScaleByAdamState holds leaves."""
+    adam = ts.opt_state[1][0]
+    out = {"params": np_tree(ts.params),
+           "opt_state": {"count": np.asarray(adam.count), "mu": np_tree(adam.mu),
+                         "nu": np_tree(adam.nu)},
+           "env_state": jax_state_to_numpy(ts.env_state),
+           "initial_env_state": jax_state_to_numpy(ts.initial_env_state),
+           "key": np.asarray(jax.random.key_data(ts.key)).astype(np.int64)}
+    if hasattr(ts, "h"):
+        out["h"] = np.asarray(ts.h, np.float32)
+    else:
+        out["obs"] = None if ts.obs is None else np.asarray(ts.obs, np.float32)
+    return out
+
+
+def max_tree_diff(jax_tree, torch_tree_np, where=""):
+    """Largest |a - b| over the leaves of two nests of the same structure
+    (a JAX pytree and a nest of numpy arrays), with the path of the leaf."""
+    a = {jax.tree_util.keystr(k): np.asarray(v, np.float32)
+         for k, v in jax.tree_util.tree_leaves_with_path(jax_tree)}
+    b = {jax.tree_util.keystr(k): np.asarray(v, np.float32)
+         for k, v in jax.tree_util.tree_leaves_with_path(torch_tree_np)}
+    assert set(a) == set(b), (where, sorted(set(a) ^ set(b)))
+    worst, at = 0.0, None
+    for k in a:
+        assert a[k].shape == b[k].shape, (where, k, a[k].shape, b[k].shape)
+        d = float(np.abs(a[k] - b[k]).max()) if a[k].size else 0.0
+        if d > worst:
+            worst, at = d, k
+    return worst, at
