@@ -7,10 +7,17 @@ result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``pogema_torch/csrc`` (one nvcc each,
      all at once) into ``build/kernels``;
-  3. hold K1, the packed-window kernel, bit for bit against its plain
-     PyTorch version at the main path's shapes and at edge cases
-     (agents on the padding border, w in {3, 5, 11, 13}), and time it
-     beside its memory bound, its plain version and one PyTorch gather;
+  3. hold both hand-written kernels bit for bit against their plain
+     PyTorch versions: K1, the packed obstacle windows, at config C's
+     shapes, at B in (1, 128), at P in (13, 40, 74) (every alignment of an
+     env's grid) and w in {3, 5, 11, 13} with centres on the padding
+     border; K1b, the whole packed observation, at the shapes of config
+     C, config-D serving and the recurrent update, with a third of the
+     agents inactive, agents sharing cells, targets far outside the
+     window, N in (1, 12), the same P and w, and a view refused. Each is
+     timed beside its memory bound, its plain version and a library
+     yardstick, by CUDA events around eager calls and by replaying a CUDA
+     graph of some tens of launches (the device time of one launch);
   4. every collision system x on_target, cached and regen auto-reset: a
      small reset and 64 ``step_autoreset`` steps on the card must equal
      the same run on the CPU bit for bit (the CPU run is held against
@@ -19,16 +26,19 @@ result line):
      radius 5, priority collisions, 'finish', cached auto-reset, packed
      observations) reset on the card, then 3 timed trials of 256
      ``step_autoreset`` steps with actions from a CUDA generator, with
-     its invariants checked and K1's launches counted; a per-part
-     breakdown of one step and a profiler kernel table follow;
+     its invariants checked and both kernels' launches counted (K1b twice
+     per step, K1 never); a per-part breakdown of one step and a profiler
+     kernel table follow; then ``pomapf``, the same config with
+     ``observation_type='POMAPF'`` for 64 steps, the full-width path that
+     launches K1 (once per step);
   6. policy: the shipped ``.ckpt_rec128_ft`` weights (committed as
      ``pogema_torch/weights/rec128_ft.npz``) in bf16 on 64 config-D
-     states: K1 bit-equal at M = N = 128, logits and values within
+     states: K1 and K1b bit-equal at M = N = 128, logits and values within
      POLICY_TOL of the same module on the CPU, greedy actions equal where
      the CPU's top-2 margin exceeds twice that;
   7. serve, the evaluation path at full width: ``make_policy_evaluator``
      on config D (1024 envs x 128 agents, LifeLong 64x64, r=5) with those
-     weights, 3 timed greedy episodes, K1 launched exactly once per step,
+     weights, 3 timed greedy episodes, K1b launched exactly once per step,
      invariants and metrics checked;
   8. serve_agree: both evaluators (policy, f32 model; planner) on the
      card and on the CPU with the same keys must agree bit for bit (the
@@ -40,16 +50,19 @@ result line):
      card and on the CPU from the same numpy state: integer state and key
      bit-equal (or first differing at a near-tie of a sampled action,
      which is printed), stats, first-minibatch gradients and parameters
-     within the tolerances stated at TRAIN_*_TOL; K1 against its plain
-     version at the update's shapes, from non-contiguous callers;
+     within the tolerances stated at TRAIN_*_TOL; K1 and K1b against their
+     plain versions at the update's shapes, from non-contiguous callers;
  11. train, the training path at full width: three recurrent PPO train
      steps on config D (1024 envs x 128 agents, regen auto-reset) from the
      shipped weights in bf16: stats, the split of each step's seconds,
-     peak memory, K1 launched exactly 64 + 1 + 2*8*64 times per step;
+     peak memory, K1b launched exactly 64 + 1 + 2*8*64 times per step;
  12. train_ff: three fused train steps at 1024 envs x 8 agents, 16x16
-     (embed/hidden 256, 'auto' picks 'pre': no K1, the grid convolutions
-     counted), then one step with obstacle_path='windows';
-then one JSON line listing the kernels and, last, the ok line.
+     (embed/hidden 256, 'auto' picks 'pre': no kernel launch, the grid
+     convolutions counted), then one step with obstacle_path='windows'
+     (K1b 64 + 1 + 2*4 times);
+then k1_shapes (both kernels timed at the serving and the update shape,
+and at all three shapes for 16 to 128 centres per block), one JSON line
+listing the kernels and, last, the ok line.
 
 Needs one CUDA device; exits non-zero without one, and outside a
 checkout of the repository.
@@ -134,6 +147,39 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, launches=20, replays=5):
+    """Device time of one call of ``fn``, free of the host's enqueue rate:
+    ``launches`` calls are captured into one CUDA graph, which is replayed
+    between two events. Every call's result is kept until the reading is
+    done, so each call writes memory of its own, as calls of a real step
+    do, and a small output cannot stay in the L2 cache from one call to
+    the next."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph, keep = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            keep.append(fn())
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (launches * replays)
+    del graph, keep
+    return ms
+
+
 def random_windows_inputs(b, p, m, r, device, seed, border=False):
     """u8 grid [B, P, P] and i32 centres [B, M, 2]; with ``border`` the
     centres also sit on the padding's outer and inner border rows."""
@@ -149,29 +195,69 @@ def random_windows_inputs(b, p, m, r, device, seed, border=False):
     return grid.to(device), xy.to(device)
 
 
-def phase_k1(device, b, p, n, r):
-    """Phase 3. Returns the kernel record (without ``launches``)."""
+def random_obs_inputs(b, p, n, r, device, seed, border=False):
+    """Inputs of the packed observation: the grid and centres of
+    :func:`random_windows_inputs` (agents may share a cell: the agents
+    block counts), targets anywhere from a grid's width outside the grid
+    to inside the window (most are clamped onto the border), and a third
+    of the agents inactive."""
     import torch
 
+    grid, axy = random_windows_inputs(b, p, n, r, device, seed, border)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1000)
+    txy = torch.randint(-p, 2 * p, (b, n, 2), generator=g, dtype=torch.int32)
+    near = axy.cpu() + torch.randint(-r, r + 1, (b, n, 2), generator=g, dtype=torch.int32)
+    txy = torch.where(torch.rand(b, n, 1, generator=g) < 0.25, near, txy)
+    active = torch.rand(b, n, generator=g) >= 1 / 3
+    return grid, axy, txy.to(device), active.to(device)
+
+
+def _kernels():
     from pogema_torch.ops import cuda_windows
+
+    return cuda_windows.extract_windows_packed, cuda_windows.packed_observation_cuda
+
+
+def _expect_refused(fn, what):
+    try:
+        fn()
+    except ValueError:
+        return
+    raise AssertionError(f"{what} was not refused")
+
+
+def phase_k1(device, b, p, n, r):
+    """Phase 3, K1. Returns the kernel record (without ``launches``)."""
+    import torch
+
     from pogema_torch.ops.windows import extract_windows_packed_ref, packed_lanes
 
-    kernel = cuda_windows.extract_windows_packed
+    from pogema_torch.ops.cuda_windows import _launch_windows
+
+    kernel, _ = _kernels()
     saved = kernel.launches
-    # The main path's shapes: reset (M = N) and cached step (M = 2N).
-    for m in (n, 2 * n):
-        grid, xy = random_windows_inputs(b, p, m, r, device, seed=m)
+    # Config C's shapes: a reset (M = N) and a cached step (M = 2N); one
+    # env, and the recurrent update's batch, which splits every env over
+    # several blocks.
+    for bb, m in ((b, n), (b, 2 * n), (1, 2 * n), (128, 2 * n)):
+        grid, xy = random_windows_inputs(bb, p, m, r, device, seed=m + bb)
         got, ref = kernel(grid, xy, 2 * r + 1), extract_windows_packed_ref(grid, xy, 2 * r + 1)
         if not torch.equal(got, ref):
-            raise AssertionError(f"K1 differs from its plain version at B={b} M={m}: "
+            raise AssertionError(f"K1 differs from its plain version at B={bb} M={m}: "
                                  f"max |diff| {(got - ref).abs().max().item()}")
-    for w in (3, 5, 11, 13):
-        grid, xy = random_windows_inputs(64, 40, 37, w // 2, device, seed=w, border=True)
-        got, ref = kernel(grid, xy, w), extract_windows_packed_ref(grid, xy, w)
-        if got.shape != (64, 37, packed_lanes(w)) or not torch.equal(got, ref):
-            raise AssertionError(f"K1 differs from its plain version at w={w} (border cases)")
-    print(f"K1 bit-equal to its plain version: B={b} P={p} M in ({n}, {2 * n}); "
-          f"w in (3, 5, 11, 13) with border centres", flush=True)
+    # Grids whose rows of an env start at every alignment (13 * 13 and
+    # 40 * 40 and 74 * 74 bytes per env), centres on the borders.
+    for pp, w in ((40, 3), (40, 5), (40, 11), (40, 13), (13, 3), (13, 11), (13, 13), (74, 11)):
+        grid, xy = random_windows_inputs(64, pp, 37, w // 2, device, seed=w + pp, border=True)
+        ref = extract_windows_packed_ref(grid, xy, w)
+        for centres in (None, 1, 5, 37):
+            got = kernel(grid, xy, w) if centres is None else _launch_windows(grid, xy, w, centres)
+            if got.shape != (64, 37, packed_lanes(w)) or not torch.equal(got, ref):
+                raise AssertionError(f"K1 differs from its plain version at P={pp} w={w} "
+                                     f"centres per block {centres} (border cases)")
+    print(f"K1 bit-equal to its plain version: P={p}, (B, M) in ({b}, {n}), ({b}, {2 * n}), "
+          f"(1, {2 * n}), (128, {2 * n}); P in (13, 40, 74) x w in (3, 5, 11, 13) with border "
+          f"centres and 1, 5, 37 or the wrapper's centres per block", flush=True)
 
     t = time_k1(device, b, p, 2 * n, r)
     kernel.launches = saved
@@ -179,43 +265,191 @@ def phase_k1(device, b, p, n, r):
             "replaces": "pogema_tpu/ops/pallas_windows.py:71", **t}
 
 
-def time_k1(device, b, p, m, r):
-    """K1 at one shape beside its byte bound, its plain version and one
-    PyTorch gather: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    library_ms}. The launches made here are not left in the count."""
+def phase_k1b(device, b, p, n, r):
+    """Phase 3, K1b. Returns the kernel record (without ``launches``)."""
     import torch
 
-    from pogema_torch.ops import cuda_windows
+    from pogema_torch.ops.cuda_windows import K1B_MAX_AGENTS, _launch_observation
+    from pogema_torch.ops.windows import packed_observation_ref
+
+    _, kernel = _kernels()
+    saved = kernel.launches
+    w = 2 * r + 1
+    # The three shapes of the table: config C, config-D serving, the
+    # recurrent update's minibatch.
+    pd, nd = CONFIG_D["size"] + 2 * CONFIG_D["obs_radius"], CONFIG_D["num_agents"]
+    for bb, pp, nn in ((b, p, n), (NUM_ENVS_D, pd, nd),
+                       (NUM_ENVS_D // TRAIN_D_PPO["minibatches"], pd, nd)):
+        args = random_obs_inputs(bb, pp, nn, r, device, seed=bb + nn)
+        got = kernel(*args, w)
+        # The plain version of a large batch goes through [B, N, N] tensors: in slices.
+        for lo in range(0, bb, 512):
+            ref = packed_observation_ref(*(a[lo:lo + 512] for a in args), w)
+            if not torch.equal(got[lo:lo + 512], ref):
+                raise AssertionError(f"K1b differs from its plain version at B={bb} N={nn} "
+                                     f"(envs {lo}..): max |diff| "
+                                     f"{(got[lo:lo + 512] - ref).abs().max().item()}")
+    for pp, nn, ww in ((40, 37, 3), (40, 37, 5), (40, 37, 11), (40, 37, 13), (13, 12, 3),
+                       (13, 12, 11), (13, 1, 13), (74, 1, 11), (74, 12, 11), (40, 10, 5),
+                       (40, 36, 13)):
+        args = random_obs_inputs(64, pp, nn, ww // 2, device, seed=ww + pp + nn, border=True)
+        ref = packed_observation_ref(*args, ww)
+        for centres in {None, 1, min(4, nn), nn}:
+            got = kernel(*args, ww) if centres is None else _launch_observation(*args, ww, centres)
+            if got.shape != (64, nn, 3 * ww * ww) or not torch.equal(got, ref):
+                raise AssertionError(f"K1b differs from its plain version at P={pp} N={nn} "
+                                     f"w={ww} agents per block {centres} (border cases)")
+    grid, axy, txy, active = random_obs_inputs(8, 40, 12, 3, device, seed=5)
+    wide = torch.stack([axy, axy], dim=1)[:, 1]  # same values, a view with gaps
+    if wide.is_contiguous():
+        raise AssertionError("the test's view is contiguous")
+    _expect_refused(lambda: kernel(grid, wide, txy, active, 7), "a non-contiguous agents_xy")
+    _expect_refused(lambda: kernel(grid, axy, txy, active.t().contiguous().t(), 7),
+                    "a non-contiguous active")
+    # A cell's count has 8 bits: the most agents the wrapper takes, all
+    # active on one cell (odd and even cells: both halves of a shared
+    # word), and one agent more refused.
+    for cell in ((20, 20), (20, 21)):
+        many = torch.tensor(cell, dtype=torch.int32, device=device).expand(2, K1B_MAX_AGENTS, 2)
+        args = (grid[:2], many.contiguous(), many.contiguous(),
+                torch.ones(2, K1B_MAX_AGENTS, dtype=torch.bool, device=device))
+        got = kernel(*args, 7)
+        if got[:, :, 49 + 24].min().item() != K1B_MAX_AGENTS or not torch.equal(
+                got, packed_observation_ref(*args, 7)):
+            raise AssertionError(f"K1b miscounts {K1B_MAX_AGENTS} agents on cell {cell}")
+    over = torch.zeros(2, K1B_MAX_AGENTS + 1, 2, dtype=torch.int32, device=device)
+    _expect_refused(lambda: kernel(grid[:2], over, over, over[..., 0] == 0, 7),
+                    f"{K1B_MAX_AGENTS + 1} agents per env")
+    print(f"K1b bit-equal to its plain version: config C (B={b} N={n}), config-D serving "
+          f"(B={NUM_ENVS_D} N={nd}), the recurrent update (B={NUM_ENVS_D // 8} N={nd}), all with "
+          f"a third of the agents inactive, agents sharing cells and far targets; P in (13, 40, "
+          f"74) x N in (1, 10, 12, 36, 37) x w in (3, 5, 11, 13) with border centres and 1, 4, N or "
+          f"the wrapper's agents per block; {K1B_MAX_AGENTS} agents counted on one cell; "
+          f"non-contiguous inputs and {K1B_MAX_AGENTS + 1} agents refused", flush=True)
+
+    t = time_k1b(device, b, p, n, r)
+    kernel.launches = saved
+    return {"name": "packed_observation", "route": "cuda", "source": "pogema_torch/csrc/windows.cu",
+            "replaces": "none (no TPU kernel): pogema_tpu/core/obs.py:42 observe, "
+                        "obs_layout='packed', composed of ops/windows.py:191 and core/obs.py:26",
+            **t}
+
+
+def _time_kernel(label, kernel, run, plain, library, nbytes, launches):
+    """One kernel at one shape beside its byte bound, its plain version
+    and its library yardstick: {max_abs_err, ms (CUDA events around
+    eager calls), device_ms (CUDA-graph replay), plain_ms, bound_ms,
+    bound_by, library_ms, library_device_ms}. ``plain`` returns the plain
+    version's result, or the largest difference from ``out`` when it
+    compares in slices. The launches made here are not left in the count."""
+    import torch
+
+    saved = kernel.launches
+    out = run()
+    err = plain(out)
+    if not torch.equal(library(), out):
+        raise AssertionError(f"the library yardstick disagrees with {label}")
+    ms = cuda_time_ms(run)
+    device_ms = graph_time_ms(run, launches)
+    plain_ms = cuda_time_ms(lambda: plain(None), iters=3, warmup=1)
+    library_ms = cuda_time_ms(library)
+    library_device_ms = graph_time_ms(library, launches)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    kernel.launches = saved
+    print(f"{label}: {device_ms:.4f} ms device time by graph replay ({bound_ms / device_ms:.2f} "
+          f"of its bound, {bound_ms:.4f} ms by {nbytes} bytes), {ms:.4f} ms by events; plain "
+          f"{plain_ms:.4f} ms; library {library_device_ms:.4f} ms by graph replay, "
+          f"{library_ms:.4f} ms by events", flush=True)
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+            "library_device_ms": library_device_ms}
+
+
+def _graph_launches(out_bytes):
+    """Launches per graph: enough that the outputs kept alive exceed the
+    50 MB L2 cache several times, within 8 GB."""
+    return int(max(10, min(40, 8e9 // out_bytes)))
+
+
+def time_k1(device, b, p, m, r):
+    """K1 at one shape; the library yardstick is one ``torch.gather``
+    from the float grid (plus a zero cell for the padding lanes) by an
+    index built outside the timed call."""
+    import torch
+
     from pogema_torch.ops.windows import extract_windows_packed_ref, packed_lanes
 
-    kernel = cuda_windows.extract_windows_packed
-    saved = kernel.launches
+    kernel, _ = _kernels()
     w = 2 * r + 1
     lanes = packed_lanes(w)
     grid, xy = random_windows_inputs(b, p, m, r, device, seed=7)
-    out = kernel(grid, xy, w)
-    err = (out - extract_windows_packed_ref(grid, xy, w)).abs().max().item()
-    ms = cuda_time_ms(lambda: kernel(grid, xy, w))
-    plain_ms = cuda_time_ms(lambda: extract_windows_packed_ref(grid, xy, w), iters=5)
-    # Library yardstick: one gather from the float grid (plus a zero cell
-    # for the padding lanes) by a precomputed index; the index is built
-    # outside the timed call.
     gflat = torch.cat([grid.reshape(b, p * p).float(), torch.zeros(b, 1, device=device)], 1)
     k = torch.arange(lanes, device=device)
     rr = (xy[..., 0:1].long() - r + k // w).clamp(0, p - 1)
     cc = (xy[..., 1:2].long() - r + k % w).clamp(0, p - 1)
     idx = torch.where(k < w * w, rr * p + cc, p * p).reshape(b, m * lanes)
-    lib = torch.gather(gflat, 1, idx).reshape(b, m, lanes)
-    if not torch.equal(lib, out):
-        raise AssertionError("the library gather disagrees with K1")
-    library_ms = cuda_time_ms(lambda: torch.gather(gflat, 1, idx))
+    del rr, cc
+
+    def plain(out):
+        ref = extract_windows_packed_ref(grid, xy, w)
+        return None if out is None else (out - ref).abs().max().item()
+
     nbytes = b * p * p + b * m * 2 * 4 + b * m * lanes * 4
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    kernel.launches = saved
-    print(f"K1 at B={b} P={p} M={m} w={w}: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
-          f"{nbytes} bytes), plain {plain_ms:.4f} ms, gather {library_ms:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": library_ms}
+    return _time_kernel(f"K1 at B={b} P={p} M={m} w={w}", kernel, lambda: kernel(grid, xy, w),
+                        plain, lambda: torch.gather(gflat, 1, idx).reshape(b, m, lanes),
+                        nbytes, _graph_launches(b * m * lanes * 4))
+
+
+def time_k1b(device, b, p, n, r):
+    """K1b at one shape. The library yardstick is the shortest sequence of
+    PyTorch calls found that gives the same tensor: ``zero_`` and
+    ``scatter_add_`` build the occupancy counts beside the float
+    obstacles, a zero and a one in one source row per env, and one
+    ``torch.gather`` reads every output element from it; the indices of
+    both and the float copies of the inputs are built outside the timed
+    calls."""
+    import torch
+
+    from pogema_torch.ops.windows import packed_observation_ref
+
+    _, kernel = _kernels()
+    w = 2 * r + 1
+    ww, pp = w * w, p * p
+    grid, axy, txy, active = random_obs_inputs(b, p, n, r, device, seed=11)
+    src = torch.cat([grid.reshape(b, pp).float(), torch.zeros(b, pp + 1, device=device),
+                     torch.ones(b, 1, device=device)], 1)  # obstacles | counts | 0 | 1
+    zero_cell, one_cell = 2 * pp, 2 * pp + 1
+    cells = pp + axy[..., 0].long() * p + axy[..., 1].long()  # [B, N] into the counts
+    active_f = active.float()
+    k = torch.arange(ww, device=device)
+    rows = axy[..., 0:1].long() - r + k // w  # [B, N, ww]
+    cols = axy[..., 1:2].long() - r + k % w
+    inside = (rows >= 0) & (rows < p) & (cols >= 0) & (cols < p)
+    cell = rows * p + cols
+    rel = (txy.long() - axy.long()).clamp(-r, r) + r
+    idx = torch.cat([torch.where(inside, cell, zero_cell), torch.where(inside, cell + pp, zero_cell),
+                     torch.where(k == (rel[..., 0:1] * w + rel[..., 1:2]), one_cell, zero_cell)],
+                    dim=-1).reshape(b, n * 3 * ww)
+    del rows, cols, inside, cell
+
+    def library():
+        src[:, pp:2 * pp].zero_()
+        src.scatter_add_(1, cells, active_f)
+        return torch.gather(src, 1, idx).reshape(b, n, 3 * ww)
+
+    def plain(out):
+        worst = 0.0
+        for lo in range(0, b, 512):  # the plain version goes through [B, N, N] tensors
+            ref = packed_observation_ref(grid[lo:lo + 512], axy[lo:lo + 512], txy[lo:lo + 512],
+                                         active[lo:lo + 512], w)
+            if out is not None:
+                worst = max(worst, (out[lo:lo + 512] - ref).abs().max().item())
+        return worst
+
+    nbytes = b * pp + 2 * b * n * 2 * 4 + b * n + b * n * 3 * ww * 4
+    return _time_kernel(f"K1b at B={b} P={p} N={n} w={w}", kernel,
+                        lambda: kernel(grid, axy, txy, active, w), plain, library, nbytes,
+                        _graph_launches(b * n * 3 * ww * 4))
 
 
 def _states_equal(a, b):
@@ -291,38 +525,38 @@ def check_state_invariants(state):
 
 
 def check_invariants(state, obs, cfg, sample=64):
-    """The state invariants, and the obstacle block of the observations
-    equals the plain windows."""
+    """The state invariants, and the packed observations of a sample of
+    envs equal the plain version's."""
     import torch
 
-    from pogema_torch.ops.windows import extract_windows_packed_ref
+    from pogema_torch.ops.windows import packed_observation_ref
 
     b, n, _ = state.agents_xy.shape
     cells = check_state_invariants(state)
     ww = cfg.window ** 2
     idx = torch.linspace(0, b - 1, sample, device=cells.device).long()
-    ref = extract_windows_packed_ref(state.obstacles[idx], state.agents_xy[idx], cfg.window)
-    if not torch.equal(obs[idx, :, :ww], ref[..., :ww]):
-        raise AssertionError("obstacle block of the observations differs from the plain windows")
+    ref = packed_observation_ref(state.obstacles[idx], state.agents_xy[idx], state.targets_xy[idx],
+                                 state.active[idx], cfg.window)
+    if not torch.equal(obs[idx], ref):
+        raise AssertionError("the observations differ from the plain packed observation")
     if obs.shape != (b, n, 3 * ww) or not torch.isfinite(obs).all():
         raise AssertionError(f"observations of shape {tuple(obs.shape)} or not finite")
 
 
 def phase_main(device):
-    """Phase 5. Returns (K1 launches, summary dict)."""
+    """Phase 5. Returns ((K1 launches, K1b launches), summary dict)."""
     import torch
 
     from pogema_torch import GridConfig, PogemaCore
     from pogema_torch.core import collisions
-    from pogema_torch.ops import cuda_windows
 
-    kernel = cuda_windows.extract_windows_packed
+    k1, kernel = _kernels()
     core = PogemaCore(GridConfig(seed=0, **CONFIG_C), num_envs=NUM_ENVS_C, maze=True,
                       device=device, obs_layout="packed")
     gen = torch.Generator(device=device).manual_seed(0)
     b, n = NUM_ENVS_C, CONFIG_C["num_agents"]
 
-    kernel.launches = 0
+    k1.launches = kernel.launches = 0
     collisions.fixpoint.passes = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -330,7 +564,7 @@ def phase_main(device):
     torch.cuda.synchronize()
     reset_s = time.perf_counter() - t0
     if kernel.launches != 1:
-        raise AssertionError(f"reset launched K1 {kernel.launches} times, expected 1")
+        raise AssertionError(f"reset launched K1b {kernel.launches} times, expected 1")
     check_invariants(state, obs, core.cfg)
     init = state
     best, done_envs, total_steps = float("inf"), 0, 0
@@ -345,18 +579,21 @@ def phase_main(device):
         best = min(best, time.perf_counter() - t0)
         total_steps += STEPS_PER_TRIAL
         check_invariants(state, obs, core.cfg)
-    launches = kernel.launches
+    launches = (k1.launches, kernel.launches)
     passes = collisions.fixpoint.passes
-    if launches != 1 + total_steps:
-        raise AssertionError(f"K1 launched {launches} times over reset + {total_steps} steps, "
-                             f"expected {1 + total_steps}")
+    # The pre-reset and the post-reset observation of a step are one K1b
+    # launch each; the packed layout does not go through K1.
+    if launches != (0, 1 + 2 * total_steps):
+        raise AssertionError(f"(K1, K1b) launched {launches} times over reset + {total_steps} "
+                             f"steps, expected (0, {1 + 2 * total_steps})")
     finished = int(done_envs.sum())
     if finished == 0:
         raise AssertionError("no env finished an episode: auto-reset never fired")
     sps = b * STEPS_PER_TRIAL / best
     summary = {"reset_s": reset_s, "env_steps_per_s": sps, "ms_per_step": best / STEPS_PER_TRIAL * 1e3,
                "steps": total_steps, "episodes_finished": finished,
-               "fixpoint_passes_per_step": passes / total_steps}
+               "fixpoint_passes_per_step": passes / total_steps,
+               "k1_launches": launches[0], "k1b_launches": launches[1]}
     print("main path (config C, cached, packed obs): " + json.dumps(summary), flush=True)
     return launches, summary
 
@@ -383,8 +620,6 @@ def phase_breakdown(device, steps=32):
     done = step_mod.episode_done(cfg, new_state)
     reset_state = core._cached_reset(new_state, init, done)
     both = torch.cat([new_state.agents_xy, reset_state.agents_xy], dim=1)
-    win = obs.obstacle_windows(cfg, new_state.obstacles, both)
-    pre, post = win.split(n, dim=1)
 
     def timed(fn):
         fn()
@@ -404,8 +639,8 @@ def phase_breakdown(device, steps=32):
                                      metrics.episode_metrics(cfg, new_state)),
         "cached_select": lambda: core._cached_reset(new_state, init, done),
         "k1_windows": lambda: obs.obstacle_windows(cfg, new_state.obstacles, both),
-        "assemble_obs_x2": lambda: (step_mod.observe_state(cfg, new_state, pre),
-                                    step_mod.observe_state(cfg, reset_state, post)),
+        "assemble_obs_x2": lambda: (step_mod.observe_state(cfg, new_state),
+                                    step_mod.observe_state(cfg, reset_state)),
     }
     collisions.fixpoint.passes = 0
     out = {k: timed(fn) for k, fn in parts.items()}
@@ -510,8 +745,8 @@ def _top2_margin(logits):
 
 def phase_policy(device, b=64, steps=3):
     """The shipped .ckpt_rec128_ft weights (from the committed .npz) in
-    bf16 on 64 config-D states: K1 bit-equal to its plain version at
-    M = N = 128, and the card's logits and values against the same module
+    bf16 on 64 config-D states: K1 and K1b bit-equal to their plain
+    versions at M = N = 128, and the card's logits and values against the same module
     on the CPU over ``steps`` chained GRU steps."""
     import torch
 
@@ -519,7 +754,7 @@ def phase_policy(device, b=64, steps=3):
     from pogema_torch.core import step as step_mod
     from pogema_torch.interop import load_policy
     from pogema_torch.ops import cuda_windows
-    from pogema_torch.ops.windows import extract_windows_packed_ref
+    from pogema_torch.ops.windows import extract_windows_packed_ref, packed_observation_ref
 
     n = CONFIG_D["num_agents"]
     core = PogemaCore(GridConfig(seed=0, **CONFIG_D), num_envs=b, device=device)
@@ -535,6 +770,10 @@ def phase_policy(device, b=64, steps=3):
     got = cuda_windows.extract_windows_packed(state.obstacles, state.agents_xy, w)
     if not torch.equal(got, extract_windows_packed_ref(state.obstacles, state.agents_xy, w)):
         raise AssertionError("K1 differs from its plain version on config-D states (M = N = 128)")
+    obs_args = (state.obstacles, state.agents_xy, state.targets_xy, state.active)
+    if not torch.equal(cuda_windows.packed_observation_cuda(*obs_args, w),
+                       packed_observation_ref(*obs_args, w)):
+        raise AssertionError("K1b differs from its plain version on config-D states (N = 128)")
     card, host = load_policy(WEIGHTS, device=device), load_policy(WEIGHTS, device="cpu")
     h_dev, h_cpu = card.initial_carry((b, n)), host.initial_carry((b, n))
     errs, decided, flips = [], 0, 0
@@ -549,7 +788,7 @@ def phase_policy(device, b=64, steps=3):
             flips += int((l_dev.argmax(-1).cpu() != l_cpu.argmax(-1))[mask].sum())
     if not all(torch.isfinite(t).all() for t in (l_dev, v_dev, h_dev)):
         raise AssertionError("non-finite policy outputs on the card")
-    print(f"policy (rec128_ft, bf16, B={b} N={n}): K1 bit-equal at M=N={n}; card vs cpu "
+    print(f"policy (rec128_ft, bf16, B={b} N={n}): K1 and K1b bit-equal at M=N={n}; card vs cpu "
           f"max |diff|/max(1,|cpu|) per step {errs} (tolerance {POLICY_TOL}); greedy actions "
           f"differ at {flips} of {decided} agents with a cpu top-2 margin > {2 * POLICY_TOL}; "
           f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
@@ -563,7 +802,7 @@ def phase_serve(device):
     rec128_ft weights in bf16, 3 timed greedy episodes (each with its
     reset). Then, outside the counted run, host-clock times of the reset,
     the policy forward and its parts, the env step, the done test and
-    freeze, and K1 at config-D shapes. Returns (K1 launches, summary);
+    freeze, and K1b at config-D shapes. Returns ((K1, K1b) launches, summary);
     ``loop_ms_per_step`` is (best episode - reset) / steps."""
     import torch
 
@@ -573,18 +812,16 @@ def phase_serve(device):
     from pogema_torch.interop import load_policy
     from pogema_torch.core.obs import packed_observation
     from pogema_torch.models.embed_actor_critic import embed_obs
-    from pogema_torch.ops import cuda_windows
-    from pogema_torch.ops.windows import packed_lanes
     from pogema_torch.parallel import make_policy_evaluator
 
-    kernel = cuda_windows.extract_windows_packed
+    k1, kernel = _kernels()
     b, n, steps = NUM_ENVS_D, CONFIG_D["num_agents"], CONFIG_D["max_episode_steps"]
     core = PogemaCore(GridConfig(seed=0, **CONFIG_D), num_envs=b, device=device)
     model = load_policy(WEIGHTS, device=device)
     run = make_policy_evaluator(core, model)
 
     times, throughput = [], []
-    kernel.launches = 0
+    k1.launches = kernel.launches = 0
     collisions.fixpoint.passes = 0
     for ep in range(SERVE_EPISODES):
         before = kernel.launches
@@ -594,14 +831,16 @@ def phase_serve(device):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         if kernel.launches - before != steps:
-            raise AssertionError(f"episode {ep} launched K1 {kernel.launches - before} times, "
+            raise AssertionError(f"episode {ep} launched K1b {kernel.launches - before} times, "
                                  f"expected {steps} (one per policy step)")
         check_state_invariants(state)
         thr = metrics["avg_throughput"]
         if thr.shape != (b,) or not torch.isfinite(thr).all() or not (state.step_count == steps).all():
             raise AssertionError("bad metrics or episode length at the end of a serving episode")
         throughput.append(float(thr.mean()))
-    launches, passes = kernel.launches, collisions.fixpoint.passes
+    launches, passes = (k1.launches, kernel.launches), collisions.fixpoint.passes
+    if k1.launches != 0:
+        raise AssertionError(f"serving launched K1 {k1.launches} times, expected 0")
 
     def host_ms(fn, iters=10):
         fn()
@@ -631,19 +870,21 @@ def phase_serve(device):
     step_ms = host_ms(lambda: step_mod.step(core.cfg, st, acts, with_obs=False))
     done_select_ms = host_ms(lambda: select_state(step_mod.episode_done(core.cfg, st), st, st))
     w = core.cfg.window
-    k1_ms = cuda_time_ms(lambda: kernel(st.obstacles, st.agents_xy, w))
+    k1b_ms = graph_time_ms(lambda: kernel(*args, w))
+    kernel.launches = launches[1]
     p = st.obstacles.shape[-1]
-    k1_bound_ms = (b * p * p + b * n * 8 + b * n * packed_lanes(w) * 4) / HBM_BYTES_PER_S * 1e3
+    k1b_bound_ms = (b * p * p + b * n * 17 + b * n * 3 * w * w * 4) / HBM_BYTES_PER_S * 1e3
     best = min(times)
     summary = {"episode_s": times, "env_steps_per_s": b * steps / best,
                "ms_per_step": best / steps * 1e3, "reset_s": reset_s,
                "loop_ms_per_step": (best - reset_s) / steps * 1e3,
                "policy_ms_per_step": policy_ms, "policy_parts_ms": parts,
                "env_step_ms": step_ms, "done_and_freeze_ms": done_select_ms,
-               "avg_throughput": throughput, "k1_launches": launches,
-               "k1_launches_per_episode": launches / SERVE_EPISODES,
+               "avg_throughput": throughput, "k1_launches": launches[0],
+               "k1b_launches": launches[1],
+               "k1b_launches_per_episode": launches[1] / SERVE_EPISODES,
                "fixpoint_passes_per_step": passes / (SERVE_EPISODES * steps),
-               "k1_ms_config_d": k1_ms, "k1_bound_ms_config_d": k1_bound_ms}
+               "k1b_device_ms_config_d": k1b_ms, "k1b_bound_ms_config_d": k1b_bound_ms}
     print("serve (config D, 1024 x 128, rec128_ft bf16, greedy): " + json.dumps(summary), flush=True)
     return launches, summary
 
@@ -859,17 +1100,17 @@ def _first_sampling_divergence(flavour, cores, models, states, n):
 
 
 def check_k1_update_shapes(device):
-    """K1 against its plain version at the shapes the updates give it."""
+    """K1 and K1b against their plain versions at the shapes the updates
+    give them."""
     import torch
 
-    from pogema_torch.ops import cuda_windows
-    from pogema_torch.ops.windows import extract_windows_packed_ref
+    from pogema_torch.ops.windows import extract_windows_packed_ref, packed_observation_ref
 
-    kernel = cuda_windows.extract_windows_packed
-    # The update hands K1 slices of mixed or env-major tensors: the wrapper
-    # refuses a view, and the callers' contiguous copies give the plain
-    # version's result. Recurrent replay at config D (B = 128, M = 128), the
-    # fused 'windows' loss of train_ff (B = 16384, M = 8).
+    kernel, k1b = _kernels()
+    # The update hands the kernels slices of mixed or env-major tensors: the
+    # wrappers refuse a view, and the callers' contiguous copies give the
+    # plain version's result. Recurrent replay at config D (B = 128, M = 128),
+    # the fused 'windows' loss of train_ff (B = 16384, M = 8).
     for b, p, m, r in ((128, 74, 128, 5), (16384, 26, 8, 5)):
         grid, _ = random_windows_inputs(b, p, m, r, device, seed=b)
         g = torch.Generator().manual_seed(b)
@@ -885,8 +1126,21 @@ def check_k1_update_shapes(device):
         got = kernel(grid_view.contiguous(), view.contiguous(), 2 * r + 1)
         if not torch.equal(got, extract_windows_packed_ref(grid_view, view, 2 * r + 1)):
             raise AssertionError(f"K1 differs from its plain version at B={b} M={m}")
-    print("K1 bit-equal to its plain version at the update's shapes (B=128 M=128 P=74; "
-          "B=16384 M=8 P=26) from contiguous copies of views; a view itself is refused", flush=True)
+        txy_all = torch.randint(0, p, (b, 4, m, 2), generator=g, dtype=torch.int32).to(device)
+        active_all = (torch.rand(b, 4, m, generator=g) < 0.7).to(device)
+        views = (grid_view, view, txy_all[:, 1], active_all[:, 3])
+        for i in range(4):
+            mixed = tuple(v if j == i else v.contiguous() for j, v in enumerate(views))
+            _expect_refused(lambda: k1b(*mixed, 2 * r + 1), f"K1b input {i} as a view")
+        copies = tuple(v.contiguous() for v in views)
+        got = k1b(*copies, 2 * r + 1)
+        for lo in range(0, b, 1024):
+            ref = packed_observation_ref(*(c[lo:lo + 1024] for c in copies), 2 * r + 1)
+            if not torch.equal(got[lo:lo + 1024], ref):
+                raise AssertionError(f"K1b differs from its plain version at B={b} N={m}")
+    print("K1 and K1b bit-equal to their plain versions at the update's shapes (B=128 M=128 "
+          "P=74; B=16384 M=8 P=26) from contiguous copies of views; each view itself is refused",
+          flush=True)
 
 
 def phase_train_agree(device):
@@ -897,11 +1151,10 @@ def phase_train_agree(device):
     import torch
 
     from pogema_torch.interop import train_state_from_numpy, train_state_to_numpy
-    from pogema_torch.ops import cuda_windows
 
     if device != "cpu":
         check_k1_update_shapes(device)
-    kernel = cuda_windows.extract_windows_packed
+    k1, k1b = _kernels()
     conv_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # f32 convolutions in f32, as on the cpu
     report = []
@@ -918,16 +1171,20 @@ def phase_train_agree(device):
                 steps = {d: make(c, m, cfg, tx, grad_hook=lambda e, i, loss, g, d=d:
                                  grads[d].append({k: v.detach().cpu() for k, v in g.items()}))
                          for d, c, m in (("cpu", core_c, model_c), (device, core_d, model_d))}
-                before = kernel.launches
+                before = (k1.launches, k1b.launches)
                 starts, stats = [], []
                 for _ in range(2):
                     starts.append((ts_c, ts_d))
                     ts_c, st_c = steps["cpu"](ts_c)
                     ts_d, st_d = steps[device](ts_d)
                     stats.append((st_c, st_d))
-                used_k1 = kernel.launches - before
-                if device != "cpu" and (used_k1 > 0) != (flavour != "fused_pre"):
-                    raise AssertionError(f"{flavour}: {used_k1} K1 launches on the card")
+                used = (k1.launches - before[0], k1b.launches - before[1])
+                # The observation-based step reads the env's 'grid' layout
+                # (K1); the state-based ones build the packed observation
+                # (K1b); 'pre' convolves the grids instead.
+                want = {"obs": (True, False), "fused_pre": (False, False)}.get(flavour, (False, True))
+                if device != "cpu" and (used[0] > 0, used[1] > 0) != want:
+                    raise AssertionError(f"{flavour}: (K1, K1b) launched {used} times on the card")
                 same = (_states_equal(ts_c.env_state, ts_d.env_state)
                         and torch.equal(ts_c.key, ts_d.key.cpu()))
                 if not same:
@@ -962,7 +1219,7 @@ def phase_train_agree(device):
                 adam_steps = 2 * cfg.epochs * cfg.minibatches
                 share = float((diffs <= TRAIN_PARAM_TOL).float().mean())
                 report.append(f"{flavour}/seed {seed}: integer state and key bit-equal, "
-                              f"{used_k1} K1 launches; stats {worst_stat:.2e}, first-minibatch "
+                              f"(K1, K1b) launched {used} times; stats {worst_stat:.2e}, first-minibatch "
                               f"gradients {worst_grad:.2e}, Adam mu {worst_mu:.2e} (of the largest "
                               f"gradient entry), parameters max {float(diffs.max()):.2e}, "
                               f"{share:.4f} within {TRAIN_PARAM_TOL}")
@@ -982,21 +1239,21 @@ def phase_train_agree(device):
               f"{TRAIN_PARAM_TOL}):\n  " + "\n  ".join(report), flush=True)
 
 
-def _run_train_steps(label, core, model, cfg, init, make, key_seed, steps, expect_k1,
+def _run_train_steps(label, core, model, cfg, init, make, key_seed, steps, expect_k1b,
                      expect_finished, device):
     """``steps`` train steps with the per-step prints and checks shared by
     the training phases: finite stats, entropy in (0, ln 5), the expected
-    episodes finished and K1 launches, finite gradients, changed and
+    episodes finished and K1b launches (and no K1 launch: the state-based
+    learners build packed observations), finite gradients, changed and
     finite parameters that the module also holds, the state invariants.
-    Returns (K1 launches, list of per-step dicts)."""
+    Returns ((K1, K1b) launches, list of per-step dicts)."""
     import math
 
     import torch
 
     from pogema_torch.models import EmbedActorCritic
-    from pogema_torch.ops import cuda_windows
 
-    kernel = cuda_windows.extract_windows_packed
+    k1, kernel = _kernels()
     start, hook, seconds = _sync_clock()
     finite = [torch.ones((), dtype=torch.bool, device=device)]
 
@@ -1006,7 +1263,7 @@ def _run_train_steps(label, core, model, cfg, init, make, key_seed, steps, expec
 
     ts, tx = init(core, model, None, cfg, core.make_key(key_seed))
     step = make(core, model, cfg, tx, grad_hook=grad_hook, phase_hook=hook)
-    kernel.launches = 0
+    k1.launches = kernel.launches = 0
     out = []
     for i in range(steps):
         before, convs = kernel.launches, EmbedActorCritic.grid_embed.calls
@@ -1020,7 +1277,7 @@ def _run_train_steps(label, core, model, cfg, init, make, key_seed, steps, expec
         rec = {"step": i, "stats": host, "seconds": dict(seconds), "seconds_total": total,
                "env_steps_per_s": core.num_envs * cfg.rollout_steps / total,
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "k1_launches": kernel.launches - before,
+               "k1_launches": k1.launches, "k1b_launches": kernel.launches - before,
                "grid_convs": EmbedActorCritic.grid_embed.calls - convs}
         print(f"{label} step {i}: " + json.dumps(rec), flush=True)
         out.append(rec)
@@ -1031,9 +1288,9 @@ def _run_train_steps(label, core, model, cfg, init, make, key_seed, steps, expec
         if host["episodes_finished"] != expect_finished[i]:
             raise AssertionError(f"{label} step {i}: {host['episodes_finished']} episodes "
                                  f"finished, expected {expect_finished[i]}")
-        if rec["k1_launches"] != expect_k1:
-            raise AssertionError(f"{label} step {i}: K1 launched {rec['k1_launches']} times, "
-                                 f"expected {expect_k1}")
+        if rec["k1b_launches"] != expect_k1b or k1.launches != 0:
+            raise AssertionError(f"{label} step {i}: K1b launched {rec['k1b_launches']} times, "
+                                 f"expected {expect_k1b}; K1 {k1.launches} times, expected 0")
         if not bool(finite[0]):
             raise AssertionError(f"{label} step {i}: a gradient is not finite")
         if not any(not torch.equal(old[k], ts.params[k]) for k in old):
@@ -1044,7 +1301,7 @@ def _run_train_steps(label, core, model, cfg, init, make, key_seed, steps, expec
         own = dict(model.named_parameters())
         if not all(torch.equal(own[k], ts.params[k]) for k in own):
             raise AssertionError(f"{label}: the module does not hold the new parameters")
-    return kernel.launches, out
+    return (k1.launches, kernel.launches), out
 
 
 def phase_train(device):
@@ -1074,7 +1331,8 @@ def phase_train(device):
     best = min(recs, key=lambda r: r["seconds_total"])
     summary = {"seconds_per_step": [r["seconds_total"] for r in recs], "best_split_s": best["seconds"],
                "env_steps_per_s_best": best["env_steps_per_s"],
-               "peak_gib": max(r["peak_gib"] for r in recs), "k1_launches_per_step": launches / TRAIN_STEPS,
+               "peak_gib": max(r["peak_gib"] for r in recs),
+               "k1b_launches_per_step": launches[1] / TRAIN_STEPS,
                "episode_avg_throughput_step1": thr}
     print("train summary: " + json.dumps(summary), flush=True)
     return launches, summary
@@ -1083,10 +1341,11 @@ def phase_train(device):
 def phase_train_ff(device):
     """The feedforward fused learner at 1024 envs x 8 agents, 16x16, r=5,
     embed/hidden 256, T = 64, 2 epochs x 4 minibatches, random bf16 init:
-    three steps with obstacle_path='auto' (picks 'pre': no K1, two grid
-    convolutions per rollout and one per loss), then one step with
-    'windows' (K1 once per rollout step, once for the bootstrap, once per
-    loss). Returns ((launches 'pre', launches 'windows'), summary)."""
+    three steps with obstacle_path='auto' (picks 'pre': no kernel launch,
+    two grid convolutions per rollout and one per loss), then one step
+    with 'windows' (K1b once per rollout step, once for the bootstrap,
+    once per loss). Returns (((K1, K1b) launches 'pre', (K1, K1b) launches
+    'windows'), summary)."""
     import torch
 
     from pogema_torch import GridConfig, PogemaCore
@@ -1101,10 +1360,10 @@ def phase_train_ff(device):
                                      embed=256, hidden=256)
         cfg = tp.PPOConfig(obstacle_path=path, **TRAIN_FF_PPO)
         t, e, m = cfg.rollout_steps, cfg.epochs, cfg.minibatches
-        expect_k1 = 0 if path == "auto" else t + 1 + e * m
+        expect_k1b = 0 if path == "auto" else t + 1 + e * m
         launches[path], recs = _run_train_steps(
             f"train_ff ({path})", core, model, cfg, tp.init_fused_train_state,
-            tp.make_fused_train_step, 1, steps, expect_k1, [0.0, 1024.0, 0.0], device)
+            tp.make_fused_train_step, 1, steps, expect_k1b, [0.0, 1024.0, 0.0], device)
         convs = [r["grid_convs"] for r in recs]
         want_convs = 2 + e * m if path == "auto" else 0
         if any(c != want_convs for c in convs):
@@ -1114,7 +1373,7 @@ def phase_train_ff(device):
         out[path] = {"seconds_per_step": [r["seconds_total"] for r in recs],
                      "best_split_s": best["seconds"], "env_steps_per_s_best": best["env_steps_per_s"],
                      "peak_gib": max(r["peak_gib"] for r in recs), "grid_convs_per_step": convs[0],
-                     "k1_launches_per_step": launches[path] / steps}
+                     "k1b_launches_per_step": launches[path][1] / steps}
     print("train_ff summary: " + json.dumps(out), flush=True)
     return (launches["auto"], launches["windows"]), out
 
@@ -1150,24 +1409,119 @@ def profile_train(device):
     plain_wall = time.perf_counter() - t0
     dev_s, kernels = _profile("config-D recurrent train step (T=16, 1 epoch x 8 minibatches)",
                               "profile_train_d.txt", one, 1)
-    k1_us = sum(us for name, us in kernels.items() if "packed_windows_kernel" in name)
+    k1b_us = sum(us for name, us in kernels.items() if "packed_observation_kernel" in name)
     t, m = cfg.rollout_steps, cfg.minibatches
     print(f"the same step with the profiler off: wall {plain_wall * 1e3:.1f} ms, so device busy "
-          f"share {dev_s / plain_wall:.3f}; K1 took {k1_us:.1f} us of device time over "
+          f"share {dev_s / plain_wall:.3f}; K1b took {k1b_us:.1f} us of device time over "
           f"{t + 1} launches at B={NUM_ENVS_D} and {m * t} at B={NUM_ENVS_D // m}", flush=True)
 
 
 def phase_k1_shapes(device):
-    """K1 beside its bound, its plain version and the gather at the
-    config-D serving shape and at the recurrent update's shape (config
-    C's is in the kernel record itself)."""
-    p = CONFIG_D["size"] + 2 * CONFIG_D["obs_radius"]
-    n, r = CONFIG_D["num_agents"], CONFIG_D["obs_radius"]
-    out = {}
-    for name, b in (("serve_config_d", NUM_ENVS_D),
-                    ("train_update_config_d", NUM_ENVS_D // TRAIN_D_PPO["minibatches"])):
-        out[name] = dict(B=b, M=n, P=p, **time_k1(device, b, p, n, r))
+    """K1 and K1b beside their bounds, plain versions and library
+    yardsticks at the config-D serving shape and at the recurrent
+    update's shape (config C's are in the kernel records themselves);
+    then the device time of both at all three shapes for 16 to 128
+    centres per block, beside the number the wrapper picks (the table that
+    ``ops/cuda_windows.py::centres_per_block`` was read off). Returns
+    (K1's dict, K1b's dict), each with ``by_centres_per_block``."""
+    import torch
+
+    from pogema_torch.ops import cuda_windows as cw
+
+    r, w = CONFIG_D["obs_radius"], 2 * CONFIG_D["obs_radius"] + 1
+    p, n = CONFIG_D["size"] + 2 * r, CONFIG_D["num_agents"]
+    small = NUM_ENVS_D // TRAIN_D_PPO["minibatches"]
+    out = ({}, {})
+    for name, b in (("serve_config_d", NUM_ENVS_D), ("train_update_config_d", small)):
+        out[0][name] = dict(B=b, M=n, P=p, **time_k1(device, b, p, n, r))
+        out[1][name] = dict(B=b, N=n, P=p, **time_k1b(device, b, p, n, r))
+
+    k1, k1b = _kernels()
+    saved = k1.launches, k1b.launches
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sweep = ({}, {})
+    nc = CONFIG_C["num_agents"]
+    for name, b, m, nn in (("config_c", NUM_ENVS_C, 2 * nc, nc), ("serve_config_d", NUM_ENVS_D, n, n),
+                           ("train_update_config_d", small, n, n)):
+        grid, xy = random_windows_inputs(b, p, m, r, device, seed=7)
+        args = random_obs_inputs(b, p, nn, r, device, seed=11)
+        picks = (cw.centres_per_block(b, m, sms, p * p, 4 * 128, cw.K1_AMORTISE, cw.K1_FILL),
+                 cw.centres_per_block(b, nn, sms, p * p, 12 * w * w, cw.K1B_AMORTISE, cw.K1B_FILL,
+                                      multiple=4))
+        runs = (lambda mc: cw._launch_windows(grid, xy, w, mc),
+                lambda mc: cw._launch_observation(*args, w, mc))
+        for i, (most, row_bytes) in enumerate(((m, 4 * 128), (nn, 12 * w * w))):
+            launches = _graph_launches(b * most * row_bytes)
+            times = {mc: graph_time_ms(lambda: runs[i](mc), launches)
+                     for mc in sorted({16, 32, 64, 128, picks[i]}) if mc <= most}
+            sweep[i][name] = {"wrapper_picks": picks[i], "device_ms": times}
+            print(f"{('K1', 'K1b')[i]} {name} (B={b}) device ms by centres per block, wrapper "
+                  f"picks {picks[i]}: " + ", ".join(f"{mc}: {t:.4f}" for mc, t in times.items()),
+                  flush=True)
+    k1.launches, k1b.launches = saved
+    for i in (0, 1):
+        out[i]["by_centres_per_block"] = sweep[i]
     return out
+
+
+def phase_pomapf(device, steps=64):
+    """K1 on a full-width path: config C with ``observation_type='POMAPF'``
+    (the dict of per-agent obstacle and agent windows plus own and target
+    coordinates), a reset and ``steps`` cached ``step_autoreset`` steps.
+    The obstacle windows of the pre-reset and the post-reset observation
+    of a step share one K1 launch. Returns ((K1, K1b) launches, summary)."""
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch.ops.windows import extract_windows, pairwise_agent_windows
+
+    k1, k1b = _kernels()
+    core = PogemaCore(GridConfig(seed=0, observation_type="POMAPF", **CONFIG_C),
+                      num_envs=NUM_ENVS_C, maze=True, device=device)
+    b, n, w, r = NUM_ENVS_C, CONFIG_C["num_agents"], core.cfg.window, core.cfg.obs_radius
+    gen = torch.Generator(device=device).manual_seed(4)
+
+    def check(state, obs):
+        check_state_invariants(state)
+        if set(obs) != {"obstacles", "agents", "xy", "target_xy"}:
+            raise AssertionError(f"POMAPF observation keys {sorted(obs)}")
+        if obs["obstacles"].shape != (b, n, w, w) or obs["agents"].shape != (b, n, w, w):
+            raise AssertionError("POMAPF windows of a wrong shape")
+        if not (torch.equal(obs["xy"], state.agents_xy - r)
+                and torch.equal(obs["target_xy"], state.targets_xy - r)):
+            raise AssertionError("POMAPF coordinates are not the unpadded state's")
+        idx = torch.linspace(0, b - 1, 64, device=device).long()
+        if not torch.equal(obs["obstacles"][idx],
+                           extract_windows(state.obstacles[idx], state.agents_xy[idx], w)):
+            raise AssertionError("POMAPF obstacle windows differ from the plain windows")
+        if not torch.equal(obs["agents"][idx],
+                           pairwise_agent_windows(state.agents_xy[idx], state.active[idx], w)):
+            raise AssertionError("POMAPF agent windows differ from the plain version")
+        # An active agent stands alone at the centre of its own windows, on a free cell.
+        if (not (obs["agents"][:, :, r, r][state.active] == 1).all()
+                or obs["obstacles"][:, :, r, r][state.active].any()):
+            raise AssertionError("POMAPF windows are not centred on the agents")
+
+    k1.launches = k1b.launches = 0
+    state, obs = core.reset(0)
+    check(state, obs)
+    init = state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        actions = torch.randint(0, 5, (b, n), device=device, generator=gen, dtype=torch.int32)
+        state, obs, res, _, _ = core.step_autoreset(state, init, actions)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    check(state, obs)
+    launches = (k1.launches, k1b.launches)
+    if launches != (1 + steps, 0):
+        raise AssertionError(f"(K1, K1b) launched {launches} times over reset + {steps} POMAPF "
+                             f"steps, expected ({1 + steps}, 0)")
+    summary = {"steps": steps, "ms_per_step": ms, "k1_launches": launches[0],
+               "k1b_launches": launches[1]}
+    print("pomapf (config C, cached, POMAPF dict observations): " + json.dumps(summary), flush=True)
+    return launches, summary
 
 
 def main() -> int:
@@ -1213,7 +1567,7 @@ def main() -> int:
         reports = build.build_all(["windows"])
         for name, log in reports.items():
             for line in log.splitlines():
-                if "registers" in line or "smem" in line or "spill" in line:
+                if any(k in line for k in ("Compiling entry", "registers", "smem", "spill")):
                     print(f"ptxas {name}: {line.strip()}")
 
     phase("build", do_build)
@@ -1222,8 +1576,11 @@ def main() -> int:
     p = CONFIG_C["size"] + 2 * CONFIG_C["obs_radius"]
     record = phase("k1", phase_k1, device, NUM_ENVS_C, p, CONFIG_C["num_agents"],
                    CONFIG_C["obs_radius"])
+    record_b = phase("k1b", phase_k1b, device, NUM_ENVS_C, p, CONFIG_C["num_agents"],
+                     CONFIG_C["obs_radius"])
     phase("devices_agree", phase_devices_agree, device)
     main_out = phase("main_path", phase_main, device)
+    pomapf_out = phase("pomapf", phase_pomapf, device)
     phase("breakdown", phase_breakdown, device)
     try:  # the profiler is a diagnostic: the run does not depend on it
         profile_step(device)
@@ -1249,16 +1606,32 @@ def main() -> int:
         print("profile: torch.profiler unavailable on this machine", flush=True)
 
     shapes = phase("k1_shapes", phase_k1_shapes, device)
-    if (failed or record is None or main_out is None or serve_out is None or train_out is None
-            or train_ff_out is None):
+    if failed or None in (record, record_b, main_out, pomapf_out, serve_out, train_out,
+                          train_ff_out, shapes):
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
-    record["launches"] = main_out[0]
-    record["launches_by_path"] = {"main_path": main_out[0], "serve": serve_out[0],
-                                  "train": train_out[0], "train_ff": train_ff_out[0][0],
-                                  "train_ff_windows": train_ff_out[0][1]}
-    record["other_shapes"] = shapes
-    print(json.dumps({"kernels": [record]}))
+    # Each kernel's launches on the paths driven above, its counter set to
+    # 0 just before each. "launches" is the count on the full-width path
+    # that runs the kernel: config C with packed observations for K1b, the
+    # same config with POMAPF observations for K1 (the packed paths do not
+    # launch it).
+    for i, rec in enumerate((record, record_b)):
+        rec["launches_by_path"] = {"main_path": main_out[0][i], "pomapf": pomapf_out[0][i],
+                                   "serve": serve_out[0][i], "train": train_out[0][i],
+                                   "train_ff": train_ff_out[0][0][i],
+                                   "train_ff_windows": train_ff_out[0][1][i]}
+        rec["by_centres_per_block"] = shapes[i].pop("by_centres_per_block")
+        rec["other_shapes"] = shapes[i]
+    record["launches"] = pomapf_out[0][0]
+    record_b["launches"] = main_out[0][1]
+    if not all(record_b["launches_by_path"][k] > 0
+               for k in ("main_path", "serve", "train", "train_ff_windows")):
+        print("chip_smoke: a packed path did not launch K1b", file=sys.stderr)
+        return 1
+    if record["launches"] <= 0:
+        print("chip_smoke: the POMAPF path did not launch K1", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": [record, record_b]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

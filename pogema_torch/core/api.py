@@ -12,7 +12,8 @@ Auto-reset comes in two modes:
   and targets_xy or, in LifeLong, target_queue) are taken from the
   running state instead of being selected. Because the grid is shared,
   one K1 launch builds the obstacle windows of both the pre-reset and
-  the post-reset observations.
+  the post-reset observations; the packed 'default' layout instead
+  builds each observation whole with one K1b launch.
 * ``'regen'``: finished envs get a newly generated map and placement,
   drawn from their advanced key; an env whose draw cannot be placed
   falls back to its reset-time state. Nothing is generated on a step
@@ -232,7 +233,9 @@ class PogemaCore:
             reset_state = self._regen_reset(new_state, initial_state, done)
         if not with_obs:
             return reset_state, None, res, done, metrics
-        if self.auto_reset_mode == "cached":
+        if cfg.observation_type == "default" and cfg.obs_layout == "packed":
+            pre_w = post_w = None  # two K1b launches build the observations whole
+        elif self.auto_reset_mode == "cached":
             both = torch.cat([new_state.agents_xy, reset_state.agents_xy], dim=1)
             pre_w, post_w = obstacle_windows(cfg, new_state.obstacles, both).split(n, dim=1)
         else:

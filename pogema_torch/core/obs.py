@@ -2,13 +2,18 @@
 
 Counterpart of ``pogema_tpu/core/obs.py``. Three channels per agent:
 
-* obstacles: the egocentric window of the padded grid. On the card it
-  comes from the K1 kernel (``ops.cuda_windows.extract_windows_packed``),
-  on the CPU from its plain version;
-* agents: which active agents stand in the window, self included
-  (``ops.windows.pairwise_agent_windows``);
+* obstacles: the egocentric window of the padded grid;
+* agents: how many active agents stand in each window cell, self
+  included (``ops.windows.pairwise_agent_windows``);
 * target: the agent's own goal, clamped onto the window border
   (``ops.windows.target_onehot``).
+
+On the card two hand-written kernels build them
+(``ops.cuda_windows``): the packed 'default' layout is one launch of K1b
+(``packed_observation_cuda``, all three blocks at once), and every other
+layout and type takes its obstacle windows from one launch of K1
+(``extract_windows_packed``) and the other two channels from plain
+PyTorch. On the CPU both wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..grid_config import StaticConfig
-from ..ops.cuda_windows import extract_windows_packed
+from ..ops.cuda_windows import extract_windows_packed, packed_observation_cuda
 from ..ops.windows import pairwise_agent_windows, target_onehot
 
 
@@ -32,16 +37,14 @@ def target_channel(cfg: StaticConfig, agents_xy, targets_xy) -> torch.Tensor:
     return target_onehot(agents_xy, targets_xy, cfg.window)
 
 
-def packed_observation(w: int, obstacles, agents_xy, targets_xy, active, obst_w=None):
+def packed_observation(w: int, obstacles, agents_xy, targets_xy, active):
     """f32[B, N, 3*W*W]: the packed 'default' observation, the
-    [obstacles | agents | target] blocks back to back. ``obst_w``: the
-    obstacle windows when the caller has them; else one K1 launch for
-    CUDA tensors."""
-    b, n, _ = agents_xy.shape
-    if obst_w is None:
-        obst_w = extract_windows_packed(obstacles, agents_xy.contiguous(), w)[..., : w * w]
-    return torch.cat([obst_w, pairwise_agent_windows(agents_xy, active, w).reshape(b, n, w * w),
-                      target_onehot(agents_xy, targets_xy, w).reshape(b, n, w * w)], dim=-1)
+    [obstacles | agents | target] blocks back to back. One K1b launch for
+    CUDA tensors, the plain composition on the CPU. ``obstacles`` must be
+    contiguous (the env's grids are); the per-agent tensors are copied if
+    they are views."""
+    return packed_observation_cuda(obstacles, agents_xy.contiguous(), targets_xy.contiguous(),
+                                   active.contiguous(), w)
 
 
 def observe(cfg: StaticConfig, obstacles, agents_xy, targets_xy, active, obst_w=None):
@@ -55,13 +58,14 @@ def observe(cfg: StaticConfig, obstacles, agents_xy, targets_xy, active, obst_w=
     Coordinates in the dicts are unpadded (logical S×S grid).
 
     ``obst_w``: the obstacle windows (f32[B, N, W*W]) when the caller has
-    them already; computed here otherwise.
+    them already; computed here otherwise. The packed 'default' layout
+    builds all three blocks at once and does not take them.
     """
     r = cfg.obs_radius
     w = cfg.window
     b, n, _ = agents_xy.shape
     if cfg.observation_type == "default" and cfg.obs_layout == "packed":
-        return packed_observation(w, obstacles, agents_xy, targets_xy, active, obst_w)
+        return packed_observation(w, obstacles, agents_xy, targets_xy, active)
     if obst_w is None:
         obst_w = obstacle_windows(cfg, obstacles, agents_xy)
     agents_w = pairwise_agent_windows(agents_xy, active, w)

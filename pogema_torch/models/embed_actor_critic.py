@@ -15,9 +15,9 @@ JAX's ``dtype`` einsum with f32 accumulation (``preferred_element_type``);
 the sum and the bias are rounded to ``dtype`` once.
 
 The observation is ``core.obs.packed_observation``, the env's own packed
-layout: on the card its obstacle block is lanes ``[0, W*W)`` of the K1
-kernel's output (``ops.cuda_windows.extract_windows_packed``, one launch
-per ``from_state`` call), on the CPU K1's plain version.
+layout: on the card one launch of the K1b kernel per ``from_state`` call
+(``ops.cuda_windows.packed_observation_cuda``, all three blocks at
+once), on the CPU K1b's plain version.
 
 bf16 rounding points follow flax: a ``Dense(dtype=bf16)`` casts input
 and kernel to bf16, its f32-accumulated product is rounded to bf16, then
@@ -35,7 +35,8 @@ them, as the transposes of flax's bf16 ``dot_general`` do. With
 
 A third entry point, ``from_state_pre``, reads a precomputed
 ``grid_embed`` (one VALID conv of the static grids) for the obstacle
-term; the learner's ``'pre'`` path uses it, and it launches no K1.
+term; the learner's ``'pre'`` path uses it, and it launches no kernel of
+``ops.cuda_windows``.
 """
 
 from __future__ import annotations

@@ -82,7 +82,7 @@ class RecurrentEmbedActorCritic(nn.Module):
     def step_from_state(self, grids, agents_xy, targets_xy, active, h):
         """One recurrent step from raw state: grids u8[B, P, P];
         agents_xy/targets_xy i32[B, N, 2]; active bool[B, N]; h
-        dtype[B, N, hidden]. The obstacle windows are one K1 launch on
+        dtype[B, N, hidden]. The packed observation is one K1b launch on
         the card."""
         obs = packed_observation(self.window, grids, agents_xy, targets_xy, active)
         bias = self.embed_bias.to(self.dtype)

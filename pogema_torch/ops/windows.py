@@ -6,9 +6,11 @@ card (and on the CPU) a gather over the window offsets is the direct
 form, so these functions index the grid. Every function is batched over
 envs ``B``; out-of-range cells read as 0, as the one-hot form gives.
 
-``extract_windows_packed_ref`` is the plain version of the hand-written
-CUDA kernel in ``ops/cuda_windows.py`` (the port of the Pallas kernel
-``pogema_tpu/ops/pallas_windows.py::extract_windows_packed``).
+``extract_windows_packed_ref`` and ``packed_observation_ref`` are the
+plain versions of the two hand-written CUDA kernels in
+``ops/cuda_windows.py``: K1, the port of the Pallas kernel
+``pogema_tpu/ops/pallas_windows.py::extract_windows_packed``, and K1b,
+the whole packed observation in one launch.
 """
 
 from __future__ import annotations
@@ -76,3 +78,14 @@ def target_onehot(agents_xy, targets_xy, w: int) -> torch.Tensor:
     out = torch.zeros(b, n, w * w, dtype=torch.float32, device=agents_xy.device)
     out.scatter_(2, idx, 1.0)
     return out.reshape(b, n, w, w)
+
+
+def packed_observation_ref(grid, agents_xy, targets_xy, active, w: int) -> torch.Tensor:
+    """Plain version of the packed-observation kernel: f32[B, N, 3*w*w],
+    the [obstacles | agents | target] blocks back to back, composed from
+    the three functions above as ``pogema_tpu/core/obs.py::observe``
+    composes its own for ``obs_layout='packed'``."""
+    b, n, _ = agents_xy.shape
+    return torch.cat([extract_windows(grid, agents_xy, w).reshape(b, n, w * w),
+                      pairwise_agent_windows(agents_xy, active, w).reshape(b, n, w * w),
+                      target_onehot(agents_xy, targets_xy, w).reshape(b, n, w * w)], dim=-1)

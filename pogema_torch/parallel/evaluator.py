@@ -3,7 +3,7 @@
 Counterpart of ``pogema_tpu/parallel/evaluator.py``
 (``make_policy_evaluator``): reset, then ``max_episode_steps`` times the
 observation-free policy forward (``EmbedActorCritic.from_state`` or
-``RecurrentEmbedActorCritic.step_from_state``, one K1 launch each on the
+``RecurrentEmbedActorCritic.step_from_state``, one K1b launch each on the
 card), the action, the env step, and the freeze of the envs whose
 episode had already ended; then the episode metrics. The JAX package
 runs this as one jitted ``lax.scan``; here it is a Python loop of batched

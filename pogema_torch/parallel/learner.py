@@ -25,14 +25,14 @@ Four flavours, as there:
   are single agents;
 * :func:`make_fused_train_step` ``'windows'``: compact state stored, the
   loss rebuilds the policy input with ``from_state`` (one launch of the
-  window kernel per minibatch loss), rows are env-steps and each row
+  observation kernel per minibatch loss), rows are env-steps and each row
   gathers its env's grid;
 * ``'pre'``: the obstacle term comes from ``grid_embed`` (one VALID conv
-  per loss), minibatches slice the time axis, the window kernel is not
+  per loss), minibatches slice the time axis, the observation kernel is not
   used;
 * :func:`make_recurrent_train_step`: minibatches slice the env axis and
   each loss replays the whole sequence from the stored hidden state (one
-  launch of the window kernel per replayed step).
+  launch of the observation kernel per replayed step).
 """
 
 from __future__ import annotations
@@ -407,7 +407,7 @@ def make_fused_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_ho
       TIME axis (every env in every minibatch), so the grids stay
       aligned with the env axis. Needs rollout_steps % minibatches == 0.
     * 'windows': per-agent window extraction (``from_state``, one launch
-      of the window kernel per call) with minibatches of env-steps; each
+      of the observation kernel per call) with minibatches of env-steps; each
       row's grid is a row gather ``grids[ids]`` (the JAX package selects
       it with a one-hot matmul). No constraints.
     * 'auto': 'pre' when it is allowed and ``S*S <= 8*w*w`` and the bf16
@@ -474,7 +474,7 @@ def make_fused_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_ho
 
         def loss_fn(batch):
             axy, txy, active, actions, old_log_probs, advantages, targets, ids = batch
-            # The window kernel reads contiguous tensors; the minibatch
+            # The observation kernel reads contiguous tensors; the minibatch
             # slices are views of the mixed dataset.
             logits, values = model.from_state(grids[ids], axy.contiguous(), txy.contiguous(),
                                               active)
@@ -600,7 +600,7 @@ def make_recurrent_train_step(core, model, config: PPOConfig, tx: Optimizer, gra
     the stored pre-rollout hidden state; the stored per-step dones
     reproduce the hidden-state evolution the rollout saw, so at epoch 0
     the replayed log-probs equal the rollout's. Each replayed step is
-    one ``step_from_state``, hence one launch of the window kernel.
+    one ``step_from_state``, hence one launch of the observation kernel.
     Needs num_envs % minibatches == 0."""
     _check_static_maps(core, config)
     model.to(core.device)
@@ -613,7 +613,7 @@ def make_recurrent_train_step(core, model, config: PPOConfig, tx: Optimizer, gra
     def loss_fn(batch):
         # Minibatch fields are [mb, T, ...] views of the mixed env-major
         # dataset; the replay walks time, so T goes in front, and the
-        # copies are contiguous because the window kernel reads them.
+        # copies are contiguous because the observation kernel reads them.
         grids_mb, h = batch[0].contiguous(), batch[1]
         (axy, txy, active, actions, old_log_probs, advantages, targets,
          dones) = (x.transpose(0, 1).contiguous() for x in batch[2:])

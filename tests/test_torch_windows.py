@@ -4,7 +4,8 @@ The plain windows against ``ops/windows.py`` and the Pallas kernel
 (interpret mode, as tests/test_pallas_windows.py runs it), the agents and
 target channels, and ``observe`` in every type and layout: all
 bit-equal. The K1 CUDA kernel against its plain version needs a card
-(marker ``cuda``) and skips without one.
+(marker ``cuda``) and skips without one; the packed observation as a
+whole (K1b) is in ``test_torch_packed_obs.py``.
 """
 
 from functools import partial
@@ -146,16 +147,21 @@ def test_k1_kernel_matches_plain_version_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
     kernel = cuda_windows.extract_windows_packed
-    for w, (b, p, m) in ((3, (8, 20, 5)), (5, (64, 40, 37)), (11, (256, 74, 128)), (13, (16, 50, 9))):
+    # (128, 74, 128): the recurrent update's batch, every env split over
+    # several blocks; (5, 13, 3): grids that start at every byte alignment.
+    for w, (b, p, m) in ((3, (8, 20, 5)), (5, (64, 40, 37)), (11, (256, 74, 128)), (13, (16, 50, 9)),
+                         (11, (128, 74, 128)), (11, (5, 13, 3))):
         g = torch.Generator().manual_seed(w)
         grid = (torch.rand(b, p, p, generator=g) < 0.3).to(torch.uint8)
         xy = torch.randint(0, p, (b, m, 2), generator=g, dtype=torch.int32)
         want = tw.extract_windows_packed_ref(grid, xy, w)
-        before = kernel.launches
-        got = kernel(grid.cuda(), xy.cuda(), w)
-        torch.cuda.synchronize()
-        assert kernel.launches == before + 1
-        assert torch.equal(got.cpu(), want)
+        for centres in (None, 1, min(5, m)):
+            before = kernel.launches
+            got = (kernel(grid.cuda(), xy.cuda(), w) if centres is None
+                   else cuda_windows._launch_windows(grid.cuda(), xy.cuda(), w, centres))
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            assert torch.equal(got.cpu(), want), (w, b, p, m, centres)
     with pytest.raises(TypeError):
         kernel(grid.cuda().float(), xy.cuda(), 13)
     with pytest.raises(ValueError):
