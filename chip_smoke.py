@@ -12,9 +12,10 @@ result line):
      shapes, at B in (1, 128), at P in (13, 40, 74) (every alignment of an
      env's grid) and w in {3, 5, 11, 13} with centres on the padding
      border; K1b, the whole packed observation, at the shapes of config
-     C, config-D serving and the recurrent update, with a third of the
-     agents inactive, agents sharing cells, targets far outside the
-     window, N in (1, 12), the same P and w, and a view refused. Each is
+     C, config-D serving, the recurrent update and one env (B = 1, N = 64
+     and 128), with a third of the agents inactive, agents sharing cells,
+     targets far outside the window, N in (1, 12), the same P and w, and
+     a view refused. Each is
      timed beside its memory bound, its plain version and a library
      yardstick, by CUDA events around eager calls and by replaying a CUDA
      graph of some tens of launches (the device time of one launch);
@@ -45,24 +46,46 @@ result line):
      policy may first differ only at a near-tie, which is printed);
   9. planner: ``evaluate_planner`` at config-C shapes with 1024 envs:
      the fields' time and sweeps, fields against the CPU, the episode;
- 10. train_agree: two PPO train steps of each flavour (observation-based,
+ 10. rim_agree: the host rim on the card against the rim on the CPU, bit
+     for bit: a ``pogema_v0`` episode (16x16, 8 agents) for each on_target
+     x observation type, and 16 steps of ``PogemaVectorEnv`` (packed and
+     grid, cached and regen);
+ 11. rim_env: ``pogema_v0`` at 64x64 with 64 agents, r=5, one 'finish'
+     and one 'restart' episode of random actions (K1 launched exactly once
+     per step and once per reset): ms per step, split into the actions'
+     upload, the core step and the host copy; then ``toolbox.PPOPolicy``
+     with the shipped weights on one config-D env for 128 steps, ms per
+     act, against the CPU; a profiler kernel table of single-env steps
+     (``chiprun_out/profile_rim_env.txt``);
+ 12. rim_vector: ``PogemaVectorEnv`` at config C's widths with 1024 envs,
+     64 steps packed (K1b 129 launches), 64 steps grid (K1 65: a cached
+     step's two observation sets share one launch) and 16 steps POMAPF,
+     episodes cut so that every env ends inside the window: ms per step
+     (the ending step, which also copies the terminal observations, apart),
+     env-steps/s, bytes copied to the host per step and the copy's ms;
+     observations and terminal observations of a sample of envs against
+     the plain observation;
+ 13. rim_toolbox: ``toolbox.evaluate`` with A* and the planner on a
+     registry map and on random 32x32 maps, card == CPU;
+ 14. train_agree: two PPO train steps of each flavour (observation-based,
      fused 'windows', fused 'pre', recurrent) at a small f32 size on the
      card and on the CPU from the same numpy state: integer state and key
      bit-equal (or first differing at a near-tie of a sampled action,
      which is printed), stats, first-minibatch gradients and parameters
      within the tolerances stated at TRAIN_*_TOL; K1 and K1b against their
      plain versions at the update's shapes, from non-contiguous callers;
- 11. train, the training path at full width: three recurrent PPO train
+ 15. train, the training path at full width: three recurrent PPO train
      steps on config D (1024 envs x 128 agents, regen auto-reset) from the
      shipped weights in bf16: stats, the split of each step's seconds,
      peak memory, K1b launched exactly 64 + 1 + 2*8*64 times per step;
- 12. train_ff: three fused train steps at 1024 envs x 8 agents, 16x16
+ 16. train_ff: three fused train steps at 1024 envs x 8 agents, 16x16
      (embed/hidden 256, 'auto' picks 'pre': no kernel launch, the grid
      convolutions counted), then one step with obstacle_path='windows'
      (K1b 64 + 1 + 2*4 times);
-then k1_shapes (both kernels timed at the serving and the update shape,
-and at all three shapes for 16 to 128 centres per block), one JSON line
-listing the kernels and, last, the ok line.
+then k1_shapes (both kernels timed at the serving and the update shape
+and for one env of 64 and of 128 agents, and at three shapes for 16 to
+128 centres per block), one JSON line listing the kernels and, last, the
+ok line.
 
 Needs one CUDA device; exits non-zero without one, and outside a
 checkout of the repository.
@@ -102,6 +125,12 @@ WEIGHTS = os.path.join(ROOT, "pogema_torch", "weights", "rec128_ft.npz")
 POLICY_TOL = 1e-2
 # The planner at config-C shapes with a quarter of config C's envs.
 PLANNER_ENVS = 1024
+# The host rim: one pogema_v0 env the size of config C's worlds (64x64, 64
+# agents, r=5, 128 steps), and PogemaVectorEnv at config C's widths with a
+# quarter of its envs (1024 x 64 agents), its episodes cut to end inside
+# the timed window.
+RIM_ENV = dict(size=64, num_agents=64, obs_radius=5, density=0.3, max_episode_steps=128, seed=0)
+RIM_VECTOR_ENVS = 1024
 
 # Training at full width: the README's config-D fine-tune and its first
 # learner command.
@@ -239,7 +268,7 @@ def phase_k1(device, b, p, n, r):
     # Config C's shapes: a reset (M = N) and a cached step (M = 2N); one
     # env, and the recurrent update's batch, which splits every env over
     # several blocks.
-    for bb, m in ((b, n), (b, 2 * n), (1, 2 * n), (128, 2 * n)):
+    for bb, m in ((b, n), (b, 2 * n), (1, n), (1, 2 * n), (128, 2 * n)):
         grid, xy = random_windows_inputs(bb, p, m, r, device, seed=m + bb)
         got, ref = kernel(grid, xy, 2 * r + 1), extract_windows_packed_ref(grid, xy, 2 * r + 1)
         if not torch.equal(got, ref):
@@ -256,7 +285,8 @@ def phase_k1(device, b, p, n, r):
                 raise AssertionError(f"K1 differs from its plain version at P={pp} w={w} "
                                      f"centres per block {centres} (border cases)")
     print(f"K1 bit-equal to its plain version: P={p}, (B, M) in ({b}, {n}), ({b}, {2 * n}), "
-          f"(1, {2 * n}), (128, {2 * n}); P in (13, 40, 74) x w in (3, 5, 11, 13) with border "
+          f"(1, {n}), (1, {2 * n}), (128, {2 * n}); P in (13, 40, 74) x w in (3, 5, 11, 13) "
+          f"with border "
           f"centres and 1, 5, 37 or the wrapper's centres per block", flush=True)
 
     t = time_k1(device, b, p, 2 * n, r)
@@ -279,7 +309,8 @@ def phase_k1b(device, b, p, n, r):
     # recurrent update's minibatch.
     pd, nd = CONFIG_D["size"] + 2 * CONFIG_D["obs_radius"], CONFIG_D["num_agents"]
     for bb, pp, nn in ((b, p, n), (NUM_ENVS_D, pd, nd),
-                       (NUM_ENVS_D // TRAIN_D_PPO["minibatches"], pd, nd)):
+                       (NUM_ENVS_D // TRAIN_D_PPO["minibatches"], pd, nd),
+                       (1, p, n), (1, pd, nd)):  # the rim's single env
         args = random_obs_inputs(bb, pp, nn, r, device, seed=bb + nn)
         got = kernel(*args, w)
         # The plain version of a large batch goes through [B, N, N] tensors: in slices.
@@ -321,11 +352,12 @@ def phase_k1b(device, b, p, n, r):
     _expect_refused(lambda: kernel(grid[:2], over, over, over[..., 0] == 0, 7),
                     f"{K1B_MAX_AGENTS + 1} agents per env")
     print(f"K1b bit-equal to its plain version: config C (B={b} N={n}), config-D serving "
-          f"(B={NUM_ENVS_D} N={nd}), the recurrent update (B={NUM_ENVS_D // 8} N={nd}), all with "
-          f"a third of the agents inactive, agents sharing cells and far targets; P in (13, 40, "
-          f"74) x N in (1, 10, 12, 36, 37) x w in (3, 5, 11, 13) with border centres and 1, 4, N or "
-          f"the wrapper's agents per block; {K1B_MAX_AGENTS} agents counted on one cell; "
-          f"non-contiguous inputs and {K1B_MAX_AGENTS + 1} agents refused", flush=True)
+          f"(B={NUM_ENVS_D} N={nd}), the recurrent update (B={NUM_ENVS_D // 8} N={nd}), one "
+          f"env (B=1 N={n} and {nd}), all with a third of the agents inactive, agents sharing "
+          f"cells and far targets; P in (13, 40, 74) x N in (1, 10, 12, 36, 37) x w in (3, 5, "
+          f"11, 13) with border centres and 1, 4, N or the wrapper's agents per block; "
+          f"{K1B_MAX_AGENTS} agents counted on one cell; non-contiguous inputs and "
+          f"{K1B_MAX_AGENTS + 1} agents refused", flush=True)
 
     t = time_k1b(device, b, p, n, r)
     kernel.launches = saved
@@ -1418,8 +1450,9 @@ def profile_train(device):
 
 def phase_k1_shapes(device):
     """K1 and K1b beside their bounds, plain versions and library
-    yardsticks at the config-D serving shape and at the recurrent
-    update's shape (config C's are in the kernel records themselves);
+    yardsticks at the config-D serving shape, at the recurrent update's
+    shape and for one env (B = 1) of 64 and of 128 agents (config C's are
+    in the kernel records themselves);
     then the device time of both at all three shapes for 16 to 128
     centres per block, beside the number the wrapper picks (the table that
     ``ops/cuda_windows.py::centres_per_block`` was read off). Returns
@@ -1435,6 +1468,10 @@ def phase_k1_shapes(device):
     for name, b in (("serve_config_d", NUM_ENVS_D), ("train_update_config_d", small)):
         out[0][name] = dict(B=b, M=n, P=p, **time_k1(device, b, p, n, r))
         out[1][name] = dict(B=b, N=n, P=p, **time_k1b(device, b, p, n, r))
+    # One env (the rim's Pogema) with config C's and config D's agent counts.
+    for m in (CONFIG_C["num_agents"], n):
+        out[0][f"one_env_n{m}"] = dict(B=1, M=m, P=p, **time_k1(device, 1, p, m, r))
+        out[1][f"one_env_n{m}"] = dict(B=1, N=m, P=p, **time_k1b(device, 1, p, m, r))
 
     k1, k1b = _kernels()
     saved = k1.launches, k1b.launches
@@ -1524,6 +1561,368 @@ def phase_pomapf(device, steps=64):
     return launches, summary
 
 
+# -- the host rim ------------------------------------------------------------
+
+
+def _host_equal(a, b) -> bool:
+    """Bit-equal host values of the rim: numpy arrays (dtype and shape
+    too), lists, tuples, dicts, Python scalars."""
+    import numpy as np
+
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_host_equal(x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(_host_equal(a[k], b[k]) for k in a)
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+def _median_ms(seconds):
+    return float(sorted(seconds)[len(seconds) // 2] * 1e3)
+
+
+def _replay_parts(core, key, actions, final_state, as_array, auto_reset):
+    """An episode of ``core`` from ``key`` again, through the parts of a
+    rim step, each on the host clock with the device drained at its end:
+    the actions' upload (as ``PogemaCore`` makes it), the core step, and
+    the host copy of what the step returns (``fetch``). The replay must end
+    in ``final_state``, the state of the timed run. Returns ({part: median
+    ms}, the last step's copied tree)."""
+    import torch
+
+    from pogema_torch.utils.host import fetch
+
+    state, _ = core.reset(key)
+    init = state
+    secs = {"upload_ms_median": [], "core_step_ms_median": [], "host_copy_ms_median": []}
+    for a in actions:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acts = torch.as_tensor(as_array(a), device=core.device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if auto_reset:
+            state, obs, res, done, mets = core.step_autoreset(state, init, acts)
+        else:
+            state, res, done, mets = core.step(state, acts)
+            obs = res.observations
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tree = (obs, res.rewards, res.terminated, res.truncated, done, mets)
+        fetch(tree)
+        t3 = time.perf_counter()
+        for k, dt in zip(secs, (t1 - t0, t2 - t1, t3 - t2)):
+            secs[k].append(dt)
+    if not _states_equal(state, final_state):
+        raise AssertionError("the replay through the parts of a step left another state")
+    return {k: _median_ms(v) for k, v in secs.items()}, tree
+
+
+def phase_rim_agree(device):
+    """``pogema_v0`` on the card against ``pogema_v0`` on the CPU, the same
+    actions (A* on the CPU env's observations, a quarter of them replaced
+    by random moves, so that agents reach goals and collide): one seeded
+    episode of 16x16, 8 agents, r=3, up to 64 steps for each on_target x
+    observation type; then 16 steps of ``PogemaVectorEnv``
+    (packed and grid, cached and regen; 8 envs whose episodes end every 8
+    steps). Every output (observations, rewards, flags, infos, metrics,
+    final observations) bit-equal."""
+    import numpy as np
+
+    from pogema_torch import BatchAStarAgent, GridConfig, PogemaVectorEnv, pogema_v0
+
+    report = []
+    for ot in ("finish", "nothing", "restart"):
+        for obs_type in ("default", "POMAPF", "MAPF"):
+            gc = GridConfig(seed=len(report), size=16, num_agents=8, obs_radius=3,
+                            max_episode_steps=64, on_target=ot, observation_type=obs_type)
+            envs = [pogema_v0(gc, device=d) for d in ("cpu", device)]
+            outs = [e.reset() for e in envs]
+            if not _host_equal(*outs):
+                raise AssertionError(f"pogema_v0 reset on {device} differs from cpu: "
+                                     f"{ot}/{obs_type}")
+            rng, astar = np.random.default_rng(len(report)), BatchAStarAgent()
+            for t in range(64):
+                a = [int(r) if rng.random() < 0.25 else p
+                     for p, r in zip(astar.act(outs[0][0]), rng.integers(0, 5, size=8))]
+                outs = [e.step(a) for e in envs]
+                if not _host_equal(*outs):
+                    raise AssertionError(f"pogema_v0 on {device} differs from cpu: {ot}/{obs_type} "
+                                         f"step {t}")
+                if all(x or y for x, y in zip(outs[0][2], outs[0][3])):
+                    break
+            report.append(f"{ot}/{obs_type} {t + 1} steps {outs[0][4][0]['metrics']}")
+    for layout in ("packed", "grid"):
+        for mode in ("cached", "regen"):
+            gc = GridConfig(seed=3, size=16, num_agents=8, obs_radius=3, max_episode_steps=8)
+            envs = [PogemaVectorEnv(gc, num_vec_envs=8, obs_layout=layout, auto_reset_mode=mode,
+                                    device=d) for d in ("cpu", device)]
+            if not _host_equal(*(e.reset() for e in envs)):
+                raise AssertionError(f"PogemaVectorEnv reset on {device} differs: {layout}/{mode}")
+            rng, ended = np.random.default_rng(5), 0
+            for t in range(16):
+                a = rng.integers(0, 5, size=envs[0].num_envs)
+                outs = [e.step(a) for e in envs]
+                if not _host_equal(*outs):
+                    raise AssertionError(f"PogemaVectorEnv on {device} differs from cpu: "
+                                         f"{layout}/{mode} step {t}")
+                ended += int(outs[0][4].get("_final_obs", np.zeros(1, bool)).sum())
+            if ended != 2 * envs[0].num_envs:
+                raise AssertionError(f"{ended} agent slots ended, expected {2 * envs[0].num_envs}")
+            report.append(f"vector {layout}/{mode} 16 steps")
+    print("rim_agree (card vs cpu, bit for bit): " + "; ".join(report), flush=True)
+
+
+def phase_rim_env(device):
+    """The single env at full width: ``pogema_v0`` of RIM_ENV (64x64, 64
+    agents, r=5, 'default' observations in the grid layout), 'finish' and
+    'restart', one whole episode each with random actions: K1 launched
+    exactly once per step and once for the reset, K1b never. Per step, the
+    median host-clock ms of ``env.step``; then, outside the counted run,
+    the same episode again through the parts of a step (the actions'
+    upload, the core step synchronised, the host copy of its results),
+    which must end in the env's own final state.
+    Then ``PPOPolicy`` from the committed rec128_ft.npz in bf16 on one env
+    of config D's shape for its 128 steps: ms per ``act``, the episode's
+    avg_throughput, and over the first 16 steps the card's logits against
+    the same policy on the CPU given the same observations (POLICY_TOL;
+    greedy actions equal where the CPU's top-2 margin exceeds twice it).
+    Returns ((K1, K1b) launches of the two random episodes, summary)."""
+    import numpy as np
+    import torch
+
+    from pogema_torch import GridConfig, pogema_v0
+    from pogema_torch.toolbox import PPOPolicy
+    from pogema_torch.utils.host import nbytes
+
+    k1, k1b = _kernels()
+    n = RIM_ENV["num_agents"]
+    summary, total = {}, [0, 0]
+    for ot in ("finish", "restart"):
+        env = pogema_v0(GridConfig(on_target=ot, **RIM_ENV), device=device)
+        rng = np.random.default_rng(0)
+        k1.launches = k1b.launches = 0
+        env.reset()
+        step_s, actions = [], []
+        while True:
+            actions.append(rng.integers(0, 5, size=n).tolist())
+            t0 = time.perf_counter()
+            _, _, term, trunc, infos = env.step(actions[-1])
+            step_s.append(time.perf_counter() - t0)
+            if all(x or y for x, y in zip(term, trunc)):
+                break
+        launches = (k1.launches, k1b.launches)
+        if launches != (len(step_s) + 1, 0):
+            raise AssertionError(f"rim_env {ot}: (K1, K1b) launched {launches} times over a reset "
+                                 f"and {len(step_s)} steps, expected ({len(step_s) + 1}, 0)")
+        total = [total[0] + launches[0], total[1] + launches[1]]
+        check_state_invariants(env._state)
+        parts, tree = _replay_parts(env._core, env._core.make_key(RIM_ENV["seed"]), actions,
+                                    env._state, lambda a: np.asarray(a, np.int32)[None, :],
+                                    auto_reset=False)
+        summary[ot] = {"steps": len(step_s), "ms_per_step_median": _median_ms(step_s), **parts,
+                       "bytes_per_step": nbytes(tree), "k1_launches": launches[0],
+                       "k1b_launches": launches[1], "metrics": infos[0]["metrics"]}
+
+    env = pogema_v0(GridConfig(seed=0, **CONFIG_D), device=device)
+    card, host = PPOPolicy(WEIGHTS, device=device), PPOPolicy(WEIGHTS, device="cpu")
+    k1.launches = k1b.launches = 0
+    obs, _ = env.reset()
+    act_s, errs, decided, flips = [], [], 0, 0
+    for t in range(CONFIG_D["max_episode_steps"]):
+        if t < 16:
+            logits, ref = card.logits(obs), host.logits(obs)
+            acts = logits.argmax(-1).tolist()
+            errs.append(float((np.abs(logits - ref) / np.maximum(1.0, np.abs(ref))).max()))
+            top2 = np.sort(ref, axis=-1)[:, -2:]
+            mask = top2[:, 1] - top2[:, 0] > 2 * POLICY_TOL
+            decided += int(mask.sum())
+            flips += int((logits.argmax(-1) != ref.argmax(-1))[mask].sum())
+        else:
+            t0 = time.perf_counter()
+            acts = card.act(obs)
+            act_s.append(time.perf_counter() - t0)
+        obs, _, term, trunc, infos = env.step(acts)
+    thr = infos[0]["metrics"]["avg_throughput"]
+    if not all(trunc) or not np.isfinite(thr) or thr <= 0:
+        raise AssertionError(f"PPO episode: truncated {all(trunc)}, avg_throughput {thr}")
+    if (k1.launches, k1b.launches) != (CONFIG_D["max_episode_steps"] + 1, 0):
+        raise AssertionError(f"PPO episode: (K1, K1b) launched {(k1.launches, k1b.launches)} times")
+    summary["ppo_config_d_one_env"] = {
+        "ms_per_act_median": _median_ms(act_s), "avg_throughput": thr,
+        "max_rel_err_first_16": max(errs), "greedy_decided": decided, "greedy_flips": flips,
+        "k1_launches": k1.launches}
+    print("rim_env (pogema_v0 at 64x64, 64 agents; PPOPolicy on one config-D env): "
+          + json.dumps(summary), flush=True)
+    if max(errs) > POLICY_TOL or flips or not decided:
+        raise AssertionError("the card's PPOPolicy differs from the cpu's beyond the tolerance")
+    return tuple(total), summary
+
+
+def profile_rim_env(device, steps=16):
+    """The kernel table of a few single-env steps at RIM_ENV's size, each
+    ``env.step`` with host actions as a Gymnasium user calls it
+    (chiprun_out/profile_rim_env.txt); the same steps are timed again with
+    the profiler off, for a busy share that the tracing does not dilute."""
+    import numpy as np
+    import torch
+
+    from pogema_torch import GridConfig, pogema_v0
+
+    env = pogema_v0(GridConfig(**RIM_ENV), device=device)
+    env.reset()
+    rng = np.random.default_rng(2)
+    acts = [rng.integers(0, 5, size=RIM_ENV["num_agents"]).tolist() for _ in range(2 * steps + 2)]
+    for a in acts[:2]:
+        env.step(a)
+    todo = iter(acts[2:])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        env.step(next(todo))
+    wall = (time.perf_counter() - t0) / steps
+    dev_s, _ = _profile("single-env steps (64x64, 64 agents)", "profile_rim_env.txt",
+                        lambda: env.step(next(todo)), steps)
+    print(f"the same steps with the profiler off: {wall * 1e3:.3f} ms/step, so device busy share "
+          f"{dev_s / wall:.3f}", flush=True)
+
+
+def _check_obs_sample(label, what, got, cfg, state, idx):
+    """``got`` (the flat host observations of every env) against the plain
+    observation on the CPU of the envs ``idx`` of ``state``."""
+    import numpy as np
+    import torch
+
+    from pogema_torch.core import step as step_mod
+
+    sample = state.replace(**{f: v[idx].cpu() for f, v in state.tensors().items()})
+    ref = step_mod.observe_state(cfg, sample)
+    n = cfg.num_agents
+    rows = (idx[:, None].cpu() * n + torch.arange(n)).flatten().numpy()
+    leaves = got.items() if isinstance(got, dict) else [(None, got)]
+    for k, v in leaves:
+        want = (ref if k is None else ref[k]).reshape((len(rows),) + v.shape[1:]).numpy()
+        if not np.array_equal(v[rows], want.astype(v.dtype)):
+            raise AssertionError(f"rim_vector {label}: {what} {k} differ from the plain ones")
+
+
+def phase_rim_vector(device):
+    """``PogemaVectorEnv`` at config C's widths (64x64 mazes, 64 agents,
+    r=5, 'finish') with RIM_VECTOR_ENVS envs and cached auto-reset: a reset
+    and 64 steps with the packed layout (K1b twice per step and once for
+    the reset, K1 never), with the grid layout (K1 once per step, shared by
+    the two observation sets of a cached step, and once for the reset),
+    and 16 steps of POMAPF (K1 likewise). Episodes are cut to 48 steps (12
+    for POMAPF), so that every env ends inside the window: that step also
+    copies the terminal observations (``final_obs``) to the host. For
+    each: ms per step (median, and the ending step apart) and env-steps/s
+    of ``env.step`` with host actions, the bytes a step copies to the
+    host, and, outside the counted run, the same steps again through their
+    parts (upload, core step, host copy). The returned observations of the
+    last step and the terminal observations of the ending step are held,
+    for a sample of envs, against the plain observation on the CPU.
+    Returns ({label: (K1, K1b) launches}, summary)."""
+    import numpy as np
+    import torch
+
+    from pogema_torch import GridConfig, PogemaVectorEnv
+    from pogema_torch.core import step as step_mod
+    from pogema_torch.utils.host import nbytes
+
+    k1, k1b = _kernels()
+    b = RIM_VECTOR_ENVS
+    launches, summary = {}, {}
+    for label, layout, obs_type, steps, ep in (("packed", "packed", "default", 64, 48),
+                                               ("grid", "grid", "default", 64, 48),
+                                               ("pomapf", "grid", "POMAPF", 16, 12)):
+        gc = GridConfig(seed=0, observation_type=obs_type,
+                        **dict(CONFIG_C, max_episode_steps=ep))
+        env = PogemaVectorEnv(gc, num_vec_envs=b, obs_layout=layout, maze=True, device=device)
+        rng = np.random.default_rng(0)
+        acts = [rng.integers(0, 5, size=env.num_envs) for _ in range(steps)]
+        k1.launches = k1b.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env.reset()
+        reset_s = time.perf_counter() - t0
+        step_s = []
+        for t, a in enumerate(acts):
+            if t == ep - 1:
+                before_end = env._state
+            t0 = time.perf_counter()
+            obs, rew, term, trunc, infos = env.step(a)
+            step_s.append(time.perf_counter() - t0)
+            if t == ep - 1:
+                end_infos = infos
+        got = (k1.launches, k1b.launches)
+        want = (0, 1 + 2 * steps) if layout == "packed" else (1 + steps, 0)
+        if got != want:
+            raise AssertionError(f"rim_vector {label}: (K1, K1b) launched {got} times, "
+                                 f"expected {want}")
+        launches[label] = got
+        core, state = env._core, env._state
+        idx = torch.linspace(0, b - 1, 16, device=device).long()
+        # The returned observations are those of the state now held.
+        _check_obs_sample(label, "observations", obs, core.cfg, state, idx)
+        # The terminal observations: every env ends at the ending step, and
+        # the state it reached before its reset is that step again,
+        # without observations.
+        ended, _ = step_mod.step(core.cfg, before_end, torch.as_tensor(
+            acts[ep - 1].reshape(b, -1), device=device).to(torch.int32), with_obs=False)
+        done = step_mod.episode_done(core.cfg, ended).cpu().numpy()
+        if not done.all() or not end_infos["_final_obs"].all():
+            raise AssertionError(f"rim_vector {label}: {int(done.sum())} of {b} envs ended at "
+                                 f"step {ep}, final_obs mask {end_infos['_final_obs'].sum()}")
+        _check_obs_sample(label, "final_obs", end_infos["final_obs"], core.cfg, ended, idx)
+        check_state_invariants(state)
+        parts, tree = _replay_parts(core, core.make_key(0), acts, state,
+                                    lambda a: a.reshape(b, -1), auto_reset=True)
+        ms = _median_ms(step_s)
+        summary[label] = {"envs": b, "agents": core.cfg.num_agents, "steps": steps,
+                          "episode_steps": ep, "reset_s": reset_s, "ms_per_step_median": ms,
+                          "ms_per_step_best": min(step_s) * 1e3,
+                          "ms_per_step_worst": max(step_s) * 1e3,
+                          "ms_ending_step": step_s[ep - 1] * 1e3,
+                          "env_steps_per_s": b / ms * 1e3,
+                          "bytes_to_host_per_step": nbytes(tree),
+                          "final_obs_host_bytes": sum(
+                              v.nbytes for v in (end_infos["final_obs"].values()
+                                                 if obs_type == "POMAPF"
+                                                 else [end_infos["final_obs"]])), **parts,
+                          "k1_launches": got[0], "k1b_launches": got[1]}
+        del env, obs, tree, infos, end_infos, before_end, ended
+    print("rim_vector (PogemaVectorEnv, config C widths, 1024 envs, cached): "
+          + json.dumps(summary), flush=True)
+    return launches, summary
+
+
+def phase_rim_toolbox(device):
+    """``toolbox.evaluate`` on the card with A* ('default' observations)
+    and with the planner ('MAPF'), on warehouse-32x32 from the port's
+    registry and on random 32x32 maps (density 0.3), 16 agents, r=5,
+    64-step episodes, seeds 0 and 1; every metric equal to the same
+    evaluation on the CPU."""
+    from pogema_torch.toolbox import evaluate
+
+    base = dict(num_agents=16, obs_radius=5, max_episode_steps=64)
+    out = {}
+    for algo, extra in (("A*", {}), ("Planner", {"observation_type": "MAPF"})):
+        envs = {"warehouse-32x32": dict(base, map_name="warehouse-32x32", **extra),
+                "random-32x32": dict(base, size=32, density=0.3, **extra)}
+        t0 = time.perf_counter()
+        card = evaluate(envs, algo=algo, seeds=[0, 1], device=device)
+        card_s = time.perf_counter() - t0
+        cpu = evaluate(envs, algo=algo, seeds=[0, 1], device="cpu")
+        if card != cpu:
+            raise AssertionError(f"toolbox {algo} on {device} {card} differs from cpu {cpu}")
+        out[algo] = {"card_s": card_s, **card}
+    print("rim_toolbox (card == cpu): " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1582,32 +1981,37 @@ def main() -> int:
     main_out = phase("main_path", phase_main, device)
     pomapf_out = phase("pomapf", phase_pomapf, device)
     phase("breakdown", phase_breakdown, device)
-    try:  # the profiler is a diagnostic: the run does not depend on it
-        profile_step(device)
-    except Exception:
-        traceback.print_exc()
+    # The kernel tables need torch.profiler; where it is missing they are
+    # left out, and any other fault in them fails the run like a phase.
+    try:
+        import torch.profiler  # noqa: F401
+        profiling = True
+    except ImportError:
         print("profile: torch.profiler unavailable on this machine", flush=True)
+        profiling = False
+    if profiling:
+        phase("profile_config_c", profile_step, device)
     phase("policy", phase_policy, device)
     serve_out = phase("serve", phase_serve, device)
-    try:
-        profile_serve(device)
-    except Exception:
-        traceback.print_exc()
-        print("profile: torch.profiler unavailable on this machine", flush=True)
+    if profiling:
+        phase("profile_serve", profile_serve, device)
     phase("serve_agree", phase_serve_agree, device)
     phase("planner", phase_planner, device)
+    phase("rim_agree", phase_rim_agree, device)
+    rim_env_out = phase("rim_env", phase_rim_env, device)
+    if profiling:
+        phase("profile_rim_env", profile_rim_env, device)
+    rim_vector_out = phase("rim_vector", phase_rim_vector, device)
+    phase("rim_toolbox", phase_rim_toolbox, device)
     phase("train_agree", phase_train_agree, device)
     train_out = phase("train", phase_train, device)
     train_ff_out = phase("train_ff", phase_train_ff, device)
-    try:
-        profile_train(device)
-    except Exception:
-        traceback.print_exc()
-        print("profile: torch.profiler unavailable on this machine", flush=True)
+    if profiling:
+        phase("profile_train", profile_train, device)
 
     shapes = phase("k1_shapes", phase_k1_shapes, device)
     if failed or None in (record, record_b, main_out, pomapf_out, serve_out, train_out,
-                          train_ff_out, shapes):
+                          train_ff_out, shapes, rim_env_out, rim_vector_out):
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     # Each kernel's launches on the paths driven above, its counter set to
@@ -1619,7 +2023,11 @@ def main() -> int:
         rec["launches_by_path"] = {"main_path": main_out[0][i], "pomapf": pomapf_out[0][i],
                                    "serve": serve_out[0][i], "train": train_out[0][i],
                                    "train_ff": train_ff_out[0][0][i],
-                                   "train_ff_windows": train_ff_out[0][1][i]}
+                                   "train_ff_windows": train_ff_out[0][1][i],
+                                   "rim_env": rim_env_out[0][i],
+                                   "rim_vector_packed": rim_vector_out[0]["packed"][i],
+                                   "rim_vector_grid": rim_vector_out[0]["grid"][i],
+                                   "rim_vector_pomapf": rim_vector_out[0]["pomapf"][i]}
         rec["by_centres_per_block"] = shapes[i].pop("by_centres_per_block")
         rec["other_shapes"] = shapes[i]
     record["launches"] = pomapf_out[0][0]
@@ -1631,6 +2039,14 @@ def main() -> int:
     if record["launches"] <= 0:
         print("chip_smoke: the POMAPF path did not launch K1", file=sys.stderr)
         return 1
+    if not (all(record["launches_by_path"][k] > 0
+                for k in ("rim_env", "rim_vector_grid", "rim_vector_pomapf"))
+            and record_b["launches_by_path"]["rim_vector_packed"] > 0):
+        print("chip_smoke: a rim path did not launch its kernel", file=sys.stderr)
+        return 1
+    # The card's name and power limit once more, beside the results: a
+    # reader of the output's tail finds them there.
+    print(card, flush=True)
     print(json.dumps({"kernels": [record, record_b]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

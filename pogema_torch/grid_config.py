@@ -130,9 +130,9 @@ class GridConfig(BaseModel, extra="forbid"):
         # seed stays None when unset: the host rim then draws a fresh map
         # every reset (reference behavior); a fixed seed reproduces exactly.
         if self.map is None and self.map_name is not None:
-            # The named-map registry (pogema_tpu/maps.py) is not part of
-            # the port yet; name the map explicitly with ``map=``.
-            raise ValueError("map_name is not supported by pogema_torch yet; pass map=")
+            from .maps import get_map
+
+            object.__setattr__(self, "map", get_map(self.map_name))
         if self.map is not None:
             grid, agents_xy, targets_xy = parse_map(self.map)
             object.__setattr__(self, "map", grid)

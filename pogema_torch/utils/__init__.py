@@ -1,4 +1,6 @@
-"""Utilities of the port: checkpointing."""
+"""Utilities of the port: checkpointing (``checkpoint``), ANSI rendering
+(``render``), the rim's host copies (``host``) and gymnasium's base
+classes or their stand-ins (``gym_compat``)."""
 
 from .checkpoint import (
     checkpoint_exists,

@@ -135,3 +135,39 @@ def max_tree_diff(jax_tree, torch_tree_np, where=""):
         if d > worst:
             worst, at = d, k
     return worst, at
+
+
+def assert_host_equal(a, b, where=""):
+    """Bit-equal host values of the rim (numpy arrays with their dtypes,
+    lists, tuples, dicts, Python scalars), as the JAX package's rim and the
+    port's hand them to a user."""
+    if isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b), (where, type(b))
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_host_equal(x, y, f"{where}[{i}]")
+    elif isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), (where, sorted(a), sorted(b))
+        for k in a:
+            assert_host_equal(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray), (where, type(b))
+        assert a.shape == b.shape and a.dtype == b.dtype, (where, a.shape, b.shape, a.dtype,
+                                                           b.dtype)
+        np.testing.assert_array_equal(b, a, err_msg=where)
+    else:
+        assert type(a) is type(b) and a == b, (where, a, b)
+
+
+def rim_episode(env, actions, steps=None):
+    """(reset output, list of step outputs) of one episode of a lists-rim
+    env driven by ``actions`` (a list of per-step action lists), ending at
+    the first step where every agent is done or after ``steps`` steps."""
+    out = [env.reset()]
+    for t, a in enumerate(actions):
+        res = env.step(a)
+        out.append(res)
+        if steps is None and all(x or y for x, y in zip(res[2], res[3])):
+            break
+        if steps is not None and t + 1 >= steps:
+            break
+    return out
