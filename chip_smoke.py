@@ -15,10 +15,17 @@ result line):
      C, config-D serving, the recurrent update and one env (B = 1, N = 64
      and 128), with a third of the agents inactive, agents sharing cells,
      targets far outside the window, N in (1, 12), the same P and w, and
-     a view refused. Each is
+     a view refused, and 255 agents counted on one cell. Each is
      timed beside its memory bound, its plain version and a library
      yardstick, by CUDA events around eager calls and by replaying a CUDA
      graph of some tens of launches (the device time of one launch);
+     then k1b_wide: K1b past 255 agents per env (the split layout of
+     16-bit counts) bit-equal at N = 256, 300 and 1024 and with 256 and
+     300 agents on one cell, and every packed path at N = 256 with its
+     launches counted exactly (PogemaCore at 16 x 256 x 128x128, the
+     recurrent and 'windows' train steps at 16 x 256, PogemaVectorEnv at
+     8 x 256, each against the CPU), then K1b timed at config E's
+     serving shape;
   4. every collision system x on_target, cached and regen auto-reset: a
      small reset and 64 ``step_autoreset`` steps on the card must equal
      the same run on the CPU bit for bit (the CPU run is held against
@@ -41,6 +48,12 @@ result line):
      on config D (1024 envs x 128 agents, LifeLong 64x64, r=5) with those
      weights, 3 timed greedy episodes, K1b launched exactly once per step,
      invariants and metrics checked;
+     then serve_e, config E (1024 envs x 256 agents, 128x128 worlds of
+     the mixed random + maze pool, packed) served with the shipped
+     ``.ckpt_maze256`` weights (``weights/maze256.npz``) in bf16: a
+     warm-up and 2 timed greedy episodes, K1b once per step, the policy
+     card vs CPU at B = 2, and the eval ladder's config-E leg (PPO and
+     random through ``toolbox.evaluate``, K1 steps + 1 times each);
   8. serve_agree: both evaluators (policy, f32 model; planner) on the
      card and on the CPU with the same keys must agree bit for bit (the
      policy may first differ only at a near-tie, which is printed);
@@ -123,6 +136,17 @@ WEIGHTS = os.path.join(ROOT, "pogema_torch", "weights", "rec128_ft.npz")
 # apart and carry through the GRU and the head. The cpu tests hold the
 # port to flax by the same bound.
 POLICY_TOL = 1e-2
+# Config E (BASELINE.md row E): LifeLong 128x128 worlds drawn from the
+# mixed random + braided-maze pool (maps.mixed_pool), 256 agents, r=5,
+# served with the shipped .ckpt_maze256 weights (committed as
+# weights/maze256.npz); depth cut from 8192 envs to 1024.
+CONFIG_E = dict(size=128, num_agents=256, obs_radius=5, density=0.3, on_target="restart",
+                max_episode_steps=128)
+NUM_ENVS_E = 1024
+WEIGHTS_E = os.path.join(ROOT, "pogema_torch", "weights", "maze256.npz")
+# The config-E leg of examples/eval_ladder.py: one seed, its world drawn
+# from the pool as the ladder draws it.
+LADDER_SEED = 1001
 # The planner at config-C shapes with a quarter of config C's envs.
 PLANNER_ENVS = 1024
 # The host rim: one pogema_v0 env the size of config C's worlds (64x64, 64
@@ -299,7 +323,8 @@ def phase_k1b(device, b, p, n, r):
     """Phase 3, K1b. Returns the kernel record (without ``launches``)."""
     import torch
 
-    from pogema_torch.ops.cuda_windows import K1B_MAX_AGENTS, _launch_observation
+    from pogema_torch.ops.cuda_windows import (K1B_MAX_AGENTS, K1B_NARROW_AGENTS,
+                                               _launch_observation)
     from pogema_torch.ops.windows import packed_observation_ref
 
     _, kernel = _kernels()
@@ -337,26 +362,19 @@ def phase_k1b(device, b, p, n, r):
     _expect_refused(lambda: kernel(grid, wide, txy, active, 7), "a non-contiguous agents_xy")
     _expect_refused(lambda: kernel(grid, axy, txy, active.t().contiguous().t(), 7),
                     "a non-contiguous active")
-    # A cell's count has 8 bits: the most agents the wrapper takes, all
+    # Up to 255 agents per env a cell's count has 8 bits: that many, all
     # active on one cell (odd and even cells: both halves of a shared
-    # word), and one agent more refused.
-    for cell in ((20, 20), (20, 21)):
-        many = torch.tensor(cell, dtype=torch.int32, device=device).expand(2, K1B_MAX_AGENTS, 2)
-        args = (grid[:2], many.contiguous(), many.contiguous(),
-                torch.ones(2, K1B_MAX_AGENTS, dtype=torch.bool, device=device))
-        got = kernel(*args, 7)
-        if got[:, :, 49 + 24].min().item() != K1B_MAX_AGENTS or not torch.equal(
-                got, packed_observation_ref(*args, 7)):
-            raise AssertionError(f"K1b miscounts {K1B_MAX_AGENTS} agents on cell {cell}")
-    over = torch.zeros(2, K1B_MAX_AGENTS + 1, 2, dtype=torch.int32, device=device)
-    _expect_refused(lambda: kernel(grid[:2], over, over, over[..., 0] == 0, 7),
+    # word); more in phase k1b_wide. More than 16-bit counts hold is refused.
+    _check_one_cell(grid[:2], (K1B_NARROW_AGENTS,))
+    over = torch.zeros(1, K1B_MAX_AGENTS + 1, 2, dtype=torch.int32, device=device)
+    _expect_refused(lambda: kernel(grid[:1], over, over, over[..., 0] == 0, 7),
                     f"{K1B_MAX_AGENTS + 1} agents per env")
     print(f"K1b bit-equal to its plain version: config C (B={b} N={n}), config-D serving "
           f"(B={NUM_ENVS_D} N={nd}), the recurrent update (B={NUM_ENVS_D // 8} N={nd}), one "
           f"env (B=1 N={n} and {nd}), all with a third of the agents inactive, agents sharing "
           f"cells and far targets; P in (13, 40, 74) x N in (1, 10, 12, 36, 37) x w in (3, 5, "
           f"11, 13) with border centres and 1, 4, N or the wrapper's agents per block; "
-          f"{K1B_MAX_AGENTS} agents counted on one cell; non-contiguous inputs and "
+          f"{K1B_NARROW_AGENTS} agents counted on one cell; non-contiguous inputs and "
           f"{K1B_MAX_AGENTS + 1} agents refused", flush=True)
 
     t = time_k1b(device, b, p, n, r)
@@ -365,6 +383,28 @@ def phase_k1b(device, b, p, n, r):
             "replaces": "none (no TPU kernel): pogema_tpu/core/obs.py:42 observe, "
                         "obs_layout='packed', composed of ops/windows.py:191 and core/obs.py:26",
             **t}
+
+
+def _check_one_cell(grid, counts, w=7):
+    """K1b with ``count`` agents per env, all active on one cell, for each
+    count, on an even and an odd cell (the two halves of a shared word in
+    either layout): bit-equal to the plain version, the centre of the
+    agents block reading the count."""
+    import torch
+
+    from pogema_torch.ops.windows import packed_observation_ref
+
+    _, kernel = _kernels()
+    b, r = grid.shape[0], w // 2
+    for count in counts:
+        for cell in ((20, 20), (20, 21)):
+            many = torch.tensor(cell, dtype=torch.int32, device=grid.device).expand(b, count, 2)
+            args = (grid, many.contiguous(), many.contiguous(),
+                    torch.ones(b, count, dtype=torch.bool, device=grid.device))
+            got = kernel(*args, w)
+            if got[:, :, w * w + r * w + r].min().item() != count or not torch.equal(
+                    got, packed_observation_ref(*args, w)):
+                raise AssertionError(f"K1b miscounts {count} agents on cell {cell}")
 
 
 def _time_kernel(label, kernel, run, plain, library, nbytes, launches):
@@ -784,7 +824,6 @@ def phase_policy(device, b=64, steps=3):
 
     from pogema_torch import GridConfig, PogemaCore
     from pogema_torch.core import step as step_mod
-    from pogema_torch.interop import load_policy
     from pogema_torch.ops import cuda_windows
     from pogema_torch.ops.windows import extract_windows_packed_ref, packed_observation_ref
 
@@ -806,7 +845,26 @@ def phase_policy(device, b=64, steps=3):
     if not torch.equal(cuda_windows.packed_observation_cuda(*obs_args, w),
                        packed_observation_ref(*obs_args, w)):
         raise AssertionError("K1b differs from its plain version on config-D states (N = 128)")
-    card, host = load_policy(WEIGHTS, device=device), load_policy(WEIGHTS, device="cpu")
+    errs, decided, flips = _policy_vs_cpu(device, WEIGHTS, states)
+    print(f"policy (rec128_ft, bf16, B={b} N={n}): K1 and K1b bit-equal at M=N={n}; card vs cpu "
+          f"max |diff|/max(1,|cpu|) per step {errs} (tolerance {POLICY_TOL}); greedy actions "
+          f"differ at {flips} of {decided} agents with a cpu top-2 margin > {2 * POLICY_TOL}; "
+          f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    if max(errs) > POLICY_TOL or flips:
+        raise AssertionError("the card's policy outputs differ from the cpu's beyond the tolerance")
+
+
+def _policy_vs_cpu(device, weights, states):
+    """The policy of ``weights`` in bf16 on the card and on the CPU over
+    the chained GRU steps of ``states``: (max |diff| / max(1, |cpu|) of
+    logits and values per step, agents whose cpu top-2 margin exceeds
+    2 * POLICY_TOL, greedy actions that differ among them)."""
+    import torch
+
+    from pogema_torch.interop import load_policy
+
+    b, n, _ = states[0].agents_xy.shape
+    card, host = load_policy(weights, device=device), load_policy(weights, device="cpu")
     h_dev, h_cpu = card.initial_carry((b, n)), host.initial_carry((b, n))
     errs, decided, flips = [], 0, 0
     with torch.no_grad():
@@ -820,12 +878,7 @@ def phase_policy(device, b=64, steps=3):
             flips += int((l_dev.argmax(-1).cpu() != l_cpu.argmax(-1))[mask].sum())
     if not all(torch.isfinite(t).all() for t in (l_dev, v_dev, h_dev)):
         raise AssertionError("non-finite policy outputs on the card")
-    print(f"policy (rec128_ft, bf16, B={b} N={n}): K1 and K1b bit-equal at M=N={n}; card vs cpu "
-          f"max |diff|/max(1,|cpu|) per step {errs} (tolerance {POLICY_TOL}); greedy actions "
-          f"differ at {flips} of {decided} agents with a cpu top-2 margin > {2 * POLICY_TOL}; "
-          f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
-    if max(errs) > POLICY_TOL or flips:
-        raise AssertionError("the card's policy outputs differ from the cpu's beyond the tolerance")
+    return errs, decided, flips
 
 
 def phase_serve(device):
@@ -1032,6 +1085,277 @@ def phase_planner(device):
     return summary
 
 
+# -- config E: K1b past 255 agents ------------------------------------------
+
+
+def _wide_train_setup(flavour, device, seed):
+    """(core, model, config, init, make) of a state-based train step at
+    N = 256: 16 envs x 256 agents on config E's 128x128 random worlds,
+    regen, T = 8, 2 epochs x 2 minibatches, f32 model of width 32, weights
+    from ``seed``; 'fused_windows' builds its loss input with K1b."""
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch import parallel as tp
+    from pogema_torch.models import init_embed_params, init_recurrent_params
+
+    core = PogemaCore(GridConfig(seed=0, **CONFIG_E), num_envs=16, auto_reset_mode="regen",
+                      device=device)
+    gen, w = torch.Generator().manual_seed(seed), 2 * CONFIG_E["obs_radius"] + 1
+    if flavour == "recurrent":
+        cfg = tp.PPOConfig(rollout_steps=8, epochs=2, minibatches=2)
+        model, _ = init_recurrent_params(gen, w, embed=32, hidden=32, dtype=torch.float32)
+        return core, model, cfg, tp.init_recurrent_train_state, tp.make_recurrent_train_step
+    cfg = tp.PPOConfig(rollout_steps=8, epochs=2, minibatches=2, obstacle_path="windows")
+    model, _ = init_embed_params(gen, w, embed=32, hidden=32, dtype=torch.float32)
+    return core, model, cfg, tp.init_fused_train_state, tp.make_fused_train_step
+
+
+def phase_k1b_wide(device):
+    """K1b past 255 agents per env (the split layout of 16-bit counts):
+    bit-equal to its plain version at (B, N, P, w) = (4, 256, 138, 11),
+    (2, 300, 40, 7) and (1, 1024, 13, 3) with 1, 4, N or the wrapper's
+    agents per block, and 255, 256 and 300 agents counted on one cell; the
+    shared memory the wrapper reckons equal to the kernel's; then every
+    card path that builds the packed observation at N = 256, each with its
+    launches counted exactly: ``PogemaCore`` packed ``step_autoreset`` at
+    16 x 256 x 128x128 for 8 steps (card == cpu), two recurrent and two
+    fused 'windows' train steps at 16 x 256 (card vs cpu within
+    TRAIN_*_TOL), ``PogemaVectorEnv`` packed at 8 x 256 (card == cpu).
+    Then K1b timed at config E's serving shape (B = 1024, N = 256, P =
+    138) and by agents per block there. Returns ({path: (K1, K1b)
+    launches}, K1b's config-E record, its by-agents-per-block dict)."""
+    import numpy as np
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore, PogemaVectorEnv
+    from pogema_torch.maps import mixed_pool
+    from pogema_torch.ops import cuda_windows as cw
+    from pogema_torch.ops.windows import packed_observation_ref
+
+    k1, kernel = _kernels()
+    fns = cw._prepare(torch.device(device))[0]
+    for pp, ww, nn in ((138, 11, 256), (40, 7, 300), (13, 3, 1024), (74, 11, 64), (138, 11, 128)):
+        for mc in (1, 4, nn):
+            wide = cw.observation_wide(nn)
+            if cw.observation_smem_bytes(pp, ww, mc, wide) != fns["pogema_packed_observation_smem"](
+                    pp, ww, mc, int(wide)):
+                raise AssertionError(f"the wrapper's shared memory differs from the kernel's at "
+                                     f"P={pp} w={ww} mc={mc} wide={wide}")
+    saved = kernel.launches
+    for bb, nn, pp, ww in ((4, 256, 138, 11), (2, 300, 40, 7), (1, 1024, 13, 3)):
+        args = random_obs_inputs(bb, pp, nn, ww // 2, device, seed=bb + nn, border=True)
+        ref = packed_observation_ref(*args, ww)
+        for centres in {None, 1, 4, nn}:
+            got = (kernel(*args, ww) if centres is None
+                   else cw._launch_observation(*args, ww, centres))
+            if got.shape != (bb, nn, 3 * ww * ww) or not torch.equal(got, ref):
+                raise AssertionError(f"K1b differs from its plain version at B={bb} N={nn} "
+                                     f"P={pp} w={ww} agents per block {centres}")
+    grid, *_ = random_obs_inputs(2, 40, 4, 3, device, seed=9)
+    _check_one_cell(grid, (cw.K1B_NARROW_AGENTS, 256, 300))
+    kernel.launches = saved
+    print("K1b bit-equal to its plain version past 255 agents: (B, N, P, w) = (4, 256, 138, "
+          "11), (2, 300, 40, 7), (1, 1024, 13, 3) with border centres and 1, 4, N or the "
+          "wrapper's agents per block; 255, 256 and 300 agents counted on one cell (odd and "
+          "even); shared memory as the wrapper reckons it", flush=True)
+
+    launches = {}
+    # PogemaCore, packed, cached auto-reset: K1b once for the reset and
+    # twice per step.
+    pool = mixed_pool(CONFIG_E["size"])
+    gc = GridConfig(seed=0, **CONFIG_E)
+    cores = [PogemaCore(gc, num_envs=16, map_bank=pool, device=d, obs_layout="packed")
+             for d in ("cpu", device)]
+    k1.launches = kernel.launches = 0
+    (s_cpu, o_cpu), (s_dev, o_dev) = (c.reset(0) for c in cores)
+    if not (_states_equal(s_cpu, s_dev) and _tree_equal(o_cpu, o_dev)):
+        raise AssertionError("config-E reset on the card differs from the cpu's")
+    init, rng = (s_cpu, s_dev), np.random.default_rng(0)
+    for t in range(8):
+        a = torch.as_tensor(rng.integers(0, 5, (16, CONFIG_E["num_agents"])), dtype=torch.int32)
+        out_cpu = cores[0].step_autoreset(s_cpu, init[0], a)
+        out_dev = cores[1].step_autoreset(s_dev, init[1], a.to(device))
+        s_cpu, s_dev = out_cpu[0], out_dev[0]
+        if not (_states_equal(s_cpu, s_dev) and _tree_equal(out_cpu[1], out_dev[1])
+                and _tree_equal(out_cpu[2].rewards, out_dev[2].rewards)
+                and _tree_equal(out_cpu[3], out_dev[3]) and _tree_equal(out_cpu[4], out_dev[4])):
+            raise AssertionError(f"config-E packed step_autoreset on the card differs from the "
+                                 f"cpu's at step {t}")
+    launches["core_packed"] = (k1.launches, kernel.launches)
+    if launches["core_packed"] != (0, 17):
+        raise AssertionError(f"PogemaCore packed at N=256: (K1, K1b) launched "
+                             f"{launches['core_packed']} times, expected (0, 17)")
+    check_state_invariants(s_dev)
+    del cores, s_cpu, s_dev, init, out_cpu, out_dev
+
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    report = []
+    try:
+        for flavour, per_step in (("recurrent", 8 + 1 + 2 * 2 * 8), ("fused_windows", 8 + 1 + 2 * 2)):
+            k1.launches = kernel.launches = 0
+            report += _train_agree(flavour, device, _wide_train_setup, expect_k1b=per_step)
+            launches[f"train_{flavour}"] = (k1.launches, kernel.launches)
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+        print("k1b_wide train steps at 16 x 256 (card vs cpu):\n  " + "\n  ".join(report),
+              flush=True)
+
+    gcv = GridConfig(seed=2, **dict(CONFIG_E, max_episode_steps=4))
+    envs = [PogemaVectorEnv(gcv, num_vec_envs=8, obs_layout="packed", map_bank=pool, device=d)
+            for d in ("cpu", device)]
+    k1.launches = kernel.launches = 0
+    if not _host_equal(*(e.reset() for e in envs)):
+        raise AssertionError("PogemaVectorEnv packed at N=256: reset on the card differs")
+    rng = np.random.default_rng(1)
+    for t in range(8):
+        a = rng.integers(0, 5, size=envs[0].num_envs)
+        outs = [e.step(a) for e in envs]
+        if not _host_equal(*outs):
+            raise AssertionError(f"PogemaVectorEnv packed at N=256 differs from cpu at step {t}")
+    launches["vector_packed"] = (k1.launches, kernel.launches)
+    if launches["vector_packed"] != (0, 17):
+        raise AssertionError(f"PogemaVectorEnv packed at N=256: (K1, K1b) launched "
+                             f"{launches['vector_packed']} times, expected (0, 17)")
+    del envs, outs
+    print("k1b_wide paths at N=256, (K1, K1b) launches: " + json.dumps(launches), flush=True)
+
+    r = CONFIG_E["obs_radius"]
+    p, n, w = CONFIG_E["size"] + 2 * r, CONFIG_E["num_agents"], 2 * r + 1
+    rec = dict(B=NUM_ENVS_E, N=n, P=p, **time_k1b(device, NUM_ENVS_E, p, n, r))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pick = cw.centres_per_block(NUM_ENVS_E, n, sms, p * p, 12 * w * w, cw.K1B_AMORTISE,
+                                cw.observation_fill(p, w, n), multiple=4)
+    args = random_obs_inputs(NUM_ENVS_E, p, n, r, device, seed=11)
+    saved = kernel.launches
+    reps = _graph_launches(NUM_ENVS_E * n * 12 * w * w)
+    times = {mc: graph_time_ms(lambda: cw._launch_observation(*args, w, mc), reps)
+             for mc in sorted({32, 64, 128, 256, pick})}
+    kernel.launches = saved
+    print(f"K1b config E (B={NUM_ENVS_E}) device ms by agents per block, wrapper picks {pick} "
+          f"(fill {cw.observation_fill(p, w, n)} blocks per SM): "
+          + ", ".join(f"{mc}: {t:.4f}" for mc, t in times.items()), flush=True)
+    return launches, rec, {"wrapper_picks": pick, "device_ms": times}
+
+
+def phase_serve_e(device):
+    """Config-E serving: ``make_policy_evaluator`` on ``PogemaCore`` of
+    config E (NUM_ENVS_E envs x 256 agents, 128x128 worlds from the mixed
+    pool, packed observations) with the shipped maze256 weights in bf16,
+    greedy: one warm-up episode, then 2 timed episodes with K1b launched
+    exactly once per policy step, the state invariants and finite metrics
+    (each episode also read by ``utils.profiling.ThroughputMeter`` inside a
+    ``trace_region``).
+    Then the policy card vs cpu at B = 2 over 16 chained steps, and
+    ``toolbox.evaluate`` on one pool world (the config-E leg of
+    examples/eval_ladder.py) with PPO and random, K1 launched exactly
+    steps + 1 times each. Returns ({path: (K1, K1b) launches}, summary)."""
+    import numpy as np
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch.core import step as step_mod
+    from pogema_torch.interop import load_policy
+    from pogema_torch.maps import mixed_pool
+    from pogema_torch.parallel import make_policy_evaluator
+    from pogema_torch.toolbox import evaluate
+    from pogema_torch.utils.profiling import ThroughputMeter, trace_region
+
+    k1, kernel = _kernels()
+    b, n, steps = NUM_ENVS_E, CONFIG_E["num_agents"], CONFIG_E["max_episode_steps"]
+    pool = mixed_pool(CONFIG_E["size"], braid=0.15)
+    core = PogemaCore(GridConfig(seed=0, **CONFIG_E), num_envs=b, map_bank=pool, device=device,
+                      obs_layout="packed")
+    model = load_policy(WEIGHTS_E, device=device)
+    run = make_policy_evaluator(core, model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(core.make_key(100))
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    launches, times, throughput, metered = {}, [], [], []
+    meter = ThroughputMeter(device)
+    k1.launches = kernel.launches = 0
+    for ep in range(2):
+        before = kernel.launches
+        torch.cuda.synchronize()
+        meter.reset()
+        t0 = time.perf_counter()
+        with trace_region("serve_e_episode"):
+            state, metrics = run(core.make_key(ep))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        meter.add(b * steps)
+        metered.append(meter.lap())
+        if kernel.launches - before != steps:
+            raise AssertionError(f"config-E episode {ep} launched K1b {kernel.launches - before} "
+                                 f"times, expected {steps}")
+        check_state_invariants(state)
+        thr = metrics["avg_throughput"]
+        if (thr.shape != (b,) or not all(torch.isfinite(v).all() for v in metrics.values())
+                or not (state.step_count == steps).all()):
+            raise AssertionError("bad metrics or episode length at the end of a config-E episode")
+        throughput.append(float(thr.mean()))
+    launches["serve_e"] = (k1.launches, kernel.launches)
+    if k1.launches != 0:
+        raise AssertionError(f"config-E serving launched K1 {k1.launches} times, expected 0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    core.reset(core.make_key(9), with_obs=False)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    best = min(times)
+    del core, run, state, metrics
+
+    # The policy card vs cpu at B = 2: 16 chained steps, four random moves
+    # between the states it sees.
+    small = PogemaCore(GridConfig(seed=0, **CONFIG_E), num_envs=2, map_bank=pool, device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    st, _ = small.reset(small.make_key(5), with_obs=False)
+    states = []
+    for _ in range(16):
+        for _ in range(4):
+            a = torch.randint(0, 5, (2, n), device=device, generator=gen, dtype=torch.int32)
+            st, _ = step_mod.step(small.cfg, st, a, with_obs=False)
+        states.append(st)
+    errs, decided, flips = _policy_vs_cpu(device, WEIGHTS_E, states)
+    if max(errs) > POLICY_TOL or flips or not decided:
+        raise AssertionError(f"config-E policy card vs cpu: max error {max(errs)}, greedy flips "
+                             f"{flips} of {decided} decided agents")
+
+    # The config-E leg of examples/eval_ladder.py on the card: one world of
+    # the pool, drawn by the seed as the ladder draws it.
+    idx = int(np.random.default_rng(LADDER_SEED).integers(len(pool)))
+    env = dict(size=CONFIG_E["size"], density=CONFIG_E["density"], num_agents=n,
+               obs_radius=CONFIG_E["obs_radius"], on_target="restart", max_episode_steps=steps,
+               map=pool[idx].tolist())
+    ladder = {}
+    for algo, akw in (("PPO", {"checkpoint": WEIGHTS_E}), ("random", None)):
+        k1.launches = kernel.launches = 0
+        t0 = time.perf_counter()
+        m = evaluate(env, algo=algo, seeds=[LADDER_SEED], algo_kwargs=akw, device=device)["env"]
+        launches[f"ladder_{algo}"] = (k1.launches, kernel.launches)
+        if launches[f"ladder_{algo}"] != (steps + 1, 0):
+            raise AssertionError(f"eval_ladder {algo} at config E: (K1, K1b) launched "
+                                 f"{launches[f'ladder_{algo}']} times, expected ({steps + 1}, 0)")
+        if not np.isfinite(m["avg_throughput"]):
+            raise AssertionError(f"eval_ladder {algo}: avg_throughput {m['avg_throughput']}")
+        ladder[algo] = {"seconds": time.perf_counter() - t0,
+                        "avg_throughput": m["avg_throughput"]}
+    summary = {"envs": b, "agents": n, "warmup_episode_s": warmup_s, "episode_s": times,
+               "reset_s": reset_s, "loop_ms_per_step": (best - reset_s) / steps * 1e3,
+               "ms_per_step": best / steps * 1e3, "env_steps_per_s": b * steps / best,
+               "throughput_meter_env_steps_per_s": metered,
+               "avg_throughput": throughput, "k1b_launches": launches["serve_e"][1],
+               "policy_b2_max_rel_err": max(errs), "policy_b2_decided": decided,
+               "policy_b2_flips": flips, "ladder_world": idx, "ladder": ladder}
+    print(f"serve_e (config E, {b} x {n}, maze256 bf16, greedy): " + json.dumps(summary),
+          flush=True)
+    return launches, summary
+
+
 # -- training ----------------------------------------------------------------
 
 
@@ -1175,95 +1499,110 @@ def check_k1_update_shapes(device):
           flush=True)
 
 
-def phase_train_agree(device):
-    """Two train steps of each flavour on the card and on the cpu from
-    the same numpy state (f32 model, small size), after K1 at the
-    update's shapes."""
+def _train_agree(flavour, device, setup, expect_k1b=None):
+    """Two train steps of ``flavour`` on the card and on the cpu from the
+    same numpy state, for the first of seeds 0-2 whose trajectories agree
+    (f32 model; ``setup(flavour, device, seed)`` gives core, model, config
+    and the step's init and make). Integer state and key bit-equal, or
+    first differing at a near-tie of a sampled action; stats, first-
+    minibatch gradients and parameters within TRAIN_*_TOL. With
+    ``expect_k1b`` the card's (K1, K1b) launches over both steps must be
+    exactly (0, 2 * expect_k1b). Returns the report lines."""
     import numpy as np
     import torch
 
     from pogema_torch.interop import train_state_from_numpy, train_state_to_numpy
 
+    k1, k1b = _kernels()
+    report = []
+    for seed in (0, 1, 2):
+        core_c, model_c, cfg, init, make = setup(flavour, "cpu", seed)
+        core_d, model_d = setup(flavour, device, seed)[:2]
+        ts_c, tx = init(core_c, model_c, None, cfg, core_c.make_key(seed + 1))
+        arrays = train_state_to_numpy(ts_c)
+        ts_d = train_state_from_numpy(arrays, device, torch.float32)
+        grads = {"cpu": [], device: []}
+        steps = {d: make(c, m, cfg, tx, grad_hook=lambda e, i, loss, g, d=d:
+                         grads[d].append({k: v.detach().cpu() for k, v in g.items()}))
+                 for d, c, m in (("cpu", core_c, model_c), (device, core_d, model_d))}
+        before = (k1.launches, k1b.launches)
+        starts, stats = [], []
+        for _ in range(2):
+            starts.append((ts_c, ts_d))
+            ts_c, st_c = steps["cpu"](ts_c)
+            ts_d, st_d = steps[device](ts_d)
+            stats.append((st_c, st_d))
+        used = (k1.launches - before[0], k1b.launches - before[1])
+        # The observation-based step reads the env's 'grid' layout
+        # (K1); the state-based ones build the packed observation
+        # (K1b); 'pre' convolves the grids instead.
+        want = {"obs": (True, False), "fused_pre": (False, False)}.get(flavour, (False, True))
+        if device != "cpu" and (used[0] > 0, used[1] > 0) != want:
+            raise AssertionError(f"{flavour}: (K1, K1b) launched {used} times on the card")
+        if expect_k1b is not None and used != (0, 2 * expect_k1b):
+            raise AssertionError(f"{flavour}: (K1, K1b) launched {used} times over two train "
+                                 f"steps, expected (0, {2 * expect_k1b})")
+        same = (_states_equal(ts_c.env_state, ts_d.env_state)
+                and torch.equal(ts_c.key, ts_d.key.cpu()))
+        if not same:
+            for i, pair in enumerate(starts):
+                t, margin = _first_sampling_divergence(
+                    flavour, (core_c, core_d), (model_c, model_d), pair, cfg.rollout_steps)
+                if t is not None:
+                    break
+            report.append(f"{flavour}/seed {seed}: first differs in train step {i} at "
+                          f"rollout step {t}, perturbed-logit margin {margin}")
+            if t is not None and margin >= 1e-5:
+                raise AssertionError(f"{flavour} on {device} differs from cpu beyond a "
+                                     f"near-tie: step {t}, margin {margin}")
+            if t is None:
+                raise AssertionError(f"{flavour} on {device}: integer state differs from "
+                                     f"cpu after equal rollouts")
+            continue
+        worst_stat = 0.0
+        for st_c, st_d in stats:
+            for k in st_c:
+                a, b_ = float(st_c[k]), float(st_d[k])
+                if not np.isfinite(b_):
+                    raise AssertionError(f"{flavour}: stat {k} on {device} is {b_}")
+                worst_stat = max(worst_stat, abs(a - b_) / max(1.0, abs(a)))
+        g_c, g_d = grads["cpu"][0], grads[device][0]
+        scale = max(float(v.abs().max()) for v in g_c.values())
+        worst_grad = max(float((g_c[k] - g_d[k]).abs().max()) for k in g_c) / scale
+        worst_mu = max(float((ts_c.opt_state["mu"][k] - ts_d.opt_state["mu"][k].cpu())
+                             .abs().max()) for k in g_c) / scale
+        diffs = torch.cat([(ts_c.params[k] - ts_d.params[k].cpu()).abs().flatten()
+                           for k in ts_c.params])
+        adam_steps = 2 * cfg.epochs * cfg.minibatches
+        share = float((diffs <= TRAIN_PARAM_TOL).float().mean())
+        report.append(f"{flavour}/seed {seed}: integer state and key bit-equal, "
+                      f"(K1, K1b) launched {used} times; stats {worst_stat:.2e}, first-minibatch "
+                      f"gradients {worst_grad:.2e}, Adam mu {worst_mu:.2e} (of the largest "
+                      f"gradient entry), parameters max {float(diffs.max()):.2e}, "
+                      f"{share:.4f} within {TRAIN_PARAM_TOL}")
+        if (worst_stat > TRAIN_STATS_TOL or worst_grad > TRAIN_GRAD_TOL
+                or worst_mu > TRAIN_GRAD_TOL or share < 0.99
+                or float(diffs.max()) > 2 * cfg.lr * adam_steps):
+            raise AssertionError(f"{flavour} on {device} differs from cpu beyond the "
+                                 f"tolerance: {report[-1]}")
+        return report
+    raise AssertionError(f"{flavour}: no seed gave equal trajectories: {report}")
+
+
+def phase_train_agree(device):
+    """Two train steps of each flavour on the card and on the cpu from
+    the same numpy state (f32 model, small size), after K1 at the
+    update's shapes."""
+    import torch
+
     if device != "cpu":
         check_k1_update_shapes(device)
-    k1, k1b = _kernels()
     conv_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # f32 convolutions in f32, as on the cpu
     report = []
     try:
         for flavour in ("obs", "fused_windows", "fused_pre", "recurrent"):
-            agreed = False
-            for seed in (0, 1, 2):
-                core_c, model_c, cfg, init, make = _small_train_setup(flavour, "cpu", seed)
-                core_d, model_d = _small_train_setup(flavour, device, seed)[:2]
-                ts_c, tx = init(core_c, model_c, None, cfg, core_c.make_key(seed + 1))
-                arrays = train_state_to_numpy(ts_c)
-                ts_d = train_state_from_numpy(arrays, device, torch.float32)
-                grads = {"cpu": [], device: []}
-                steps = {d: make(c, m, cfg, tx, grad_hook=lambda e, i, loss, g, d=d:
-                                 grads[d].append({k: v.detach().cpu() for k, v in g.items()}))
-                         for d, c, m in (("cpu", core_c, model_c), (device, core_d, model_d))}
-                before = (k1.launches, k1b.launches)
-                starts, stats = [], []
-                for _ in range(2):
-                    starts.append((ts_c, ts_d))
-                    ts_c, st_c = steps["cpu"](ts_c)
-                    ts_d, st_d = steps[device](ts_d)
-                    stats.append((st_c, st_d))
-                used = (k1.launches - before[0], k1b.launches - before[1])
-                # The observation-based step reads the env's 'grid' layout
-                # (K1); the state-based ones build the packed observation
-                # (K1b); 'pre' convolves the grids instead.
-                want = {"obs": (True, False), "fused_pre": (False, False)}.get(flavour, (False, True))
-                if device != "cpu" and (used[0] > 0, used[1] > 0) != want:
-                    raise AssertionError(f"{flavour}: (K1, K1b) launched {used} times on the card")
-                same = (_states_equal(ts_c.env_state, ts_d.env_state)
-                        and torch.equal(ts_c.key, ts_d.key.cpu()))
-                if not same:
-                    for i, pair in enumerate(starts):
-                        t, margin = _first_sampling_divergence(
-                            flavour, (core_c, core_d), (model_c, model_d), pair, cfg.rollout_steps)
-                        if t is not None:
-                            break
-                    report.append(f"{flavour}/seed {seed}: first differs in train step {i} at "
-                                  f"rollout step {t}, perturbed-logit margin {margin}")
-                    if t is not None and margin >= 1e-5:
-                        raise AssertionError(f"{flavour} on {device} differs from cpu beyond a "
-                                             f"near-tie: step {t}, margin {margin}")
-                    if t is None:
-                        raise AssertionError(f"{flavour} on {device}: integer state differs from "
-                                             f"cpu after equal rollouts")
-                    continue
-                worst_stat = 0.0
-                for st_c, st_d in stats:
-                    for k in st_c:
-                        a, b_ = float(st_c[k]), float(st_d[k])
-                        if not np.isfinite(b_):
-                            raise AssertionError(f"{flavour}: stat {k} on {device} is {b_}")
-                        worst_stat = max(worst_stat, abs(a - b_) / max(1.0, abs(a)))
-                g_c, g_d = grads["cpu"][0], grads[device][0]
-                scale = max(float(v.abs().max()) for v in g_c.values())
-                worst_grad = max(float((g_c[k] - g_d[k]).abs().max()) for k in g_c) / scale
-                worst_mu = max(float((ts_c.opt_state["mu"][k] - ts_d.opt_state["mu"][k].cpu())
-                                     .abs().max()) for k in g_c) / scale
-                diffs = torch.cat([(ts_c.params[k] - ts_d.params[k].cpu()).abs().flatten()
-                                   for k in ts_c.params])
-                adam_steps = 2 * cfg.epochs * cfg.minibatches
-                share = float((diffs <= TRAIN_PARAM_TOL).float().mean())
-                report.append(f"{flavour}/seed {seed}: integer state and key bit-equal, "
-                              f"(K1, K1b) launched {used} times; stats {worst_stat:.2e}, first-minibatch "
-                              f"gradients {worst_grad:.2e}, Adam mu {worst_mu:.2e} (of the largest "
-                              f"gradient entry), parameters max {float(diffs.max()):.2e}, "
-                              f"{share:.4f} within {TRAIN_PARAM_TOL}")
-                if (worst_stat > TRAIN_STATS_TOL or worst_grad > TRAIN_GRAD_TOL
-                        or worst_mu > TRAIN_GRAD_TOL or share < 0.99
-                        or float(diffs.max()) > 2 * cfg.lr * adam_steps):
-                    raise AssertionError(f"{flavour} on {device} differs from cpu beyond the "
-                                         f"tolerance: {report[-1]}")
-                agreed = True
-                break
-            if not agreed:
-                raise AssertionError(f"{flavour}: no seed gave equal trajectories: {report}")
+            report += _train_agree(flavour, device, _small_train_setup)
     finally:
         torch.backends.cudnn.allow_tf32 = conv_tf32
         print("train_agree (card vs cpu, f32, two train steps; tolerances: stats "
@@ -1451,8 +1790,9 @@ def profile_train(device):
 def phase_k1_shapes(device):
     """K1 and K1b beside their bounds, plain versions and library
     yardsticks at the config-D serving shape, at the recurrent update's
-    shape and for one env (B = 1) of 64 and of 128 agents (config C's are
-    in the kernel records themselves);
+    shape and for one env (B = 1) of 64 and of 128 agents, and K1 for one
+    config-E env (B = 1, M = 256, P = 138; config C's are in the kernel
+    records themselves, K1b's at config E in phase k1b_wide);
     then the device time of both at all three shapes for 16 to 128
     centres per block, beside the number the wrapper picks (the table that
     ``ops/cuda_windows.py::centres_per_block`` was read off). Returns
@@ -1472,6 +1812,9 @@ def phase_k1_shapes(device):
     for m in (CONFIG_C["num_agents"], n):
         out[0][f"one_env_n{m}"] = dict(B=1, M=m, P=p, **time_k1(device, 1, p, m, r))
         out[1][f"one_env_n{m}"] = dict(B=1, N=m, P=p, **time_k1b(device, 1, p, m, r))
+    # One config-E env (the eval ladder's PPO leg): K1 at P = 138, M = 256.
+    pe, ne = CONFIG_E["size"] + 2 * r, CONFIG_E["num_agents"]
+    out[0]["one_env_config_e"] = dict(B=1, M=ne, P=pe, **time_k1(device, 1, pe, ne, r))
 
     k1, k1b = _kernels()
     saved = k1.launches, k1b.launches
@@ -1483,8 +1826,8 @@ def phase_k1_shapes(device):
         grid, xy = random_windows_inputs(b, p, m, r, device, seed=7)
         args = random_obs_inputs(b, p, nn, r, device, seed=11)
         picks = (cw.centres_per_block(b, m, sms, p * p, 4 * 128, cw.K1_AMORTISE, cw.K1_FILL),
-                 cw.centres_per_block(b, nn, sms, p * p, 12 * w * w, cw.K1B_AMORTISE, cw.K1B_FILL,
-                                      multiple=4))
+                 cw.centres_per_block(b, nn, sms, p * p, 12 * w * w, cw.K1B_AMORTISE,
+                                      cw.observation_fill(p, w, nn), multiple=4))
         runs = (lambda mc: cw._launch_windows(grid, xy, w, mc),
                 lambda mc: cw._launch_observation(*args, w, mc))
         for i, (most, row_bytes) in enumerate(((m, 4 * 128), (nn, 12 * w * w))):
@@ -1977,6 +2320,7 @@ def main() -> int:
                    CONFIG_C["obs_radius"])
     record_b = phase("k1b", phase_k1b, device, NUM_ENVS_C, p, CONFIG_C["num_agents"],
                      CONFIG_C["obs_radius"])
+    wide_out = phase("k1b_wide", phase_k1b_wide, device)
     phase("devices_agree", phase_devices_agree, device)
     main_out = phase("main_path", phase_main, device)
     pomapf_out = phase("pomapf", phase_pomapf, device)
@@ -1993,6 +2337,7 @@ def main() -> int:
         phase("profile_config_c", profile_step, device)
     phase("policy", phase_policy, device)
     serve_out = phase("serve", phase_serve, device)
+    serve_e_out = phase("serve_e", phase_serve_e, device)
     if profiling:
         phase("profile_serve", profile_serve, device)
     phase("serve_agree", phase_serve_agree, device)
@@ -2010,8 +2355,9 @@ def main() -> int:
         phase("profile_train", profile_train, device)
 
     shapes = phase("k1_shapes", phase_k1_shapes, device)
-    if failed or None in (record, record_b, main_out, pomapf_out, serve_out, train_out,
-                          train_ff_out, shapes, rim_env_out, rim_vector_out):
+    if failed or None in (record, record_b, wide_out, main_out, pomapf_out, serve_out,
+                          serve_e_out, train_out, train_ff_out, shapes, rim_env_out,
+                          rim_vector_out):
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     # Each kernel's launches on the paths driven above, its counter set to
@@ -2027,20 +2373,27 @@ def main() -> int:
                                    "rim_env": rim_env_out[0][i],
                                    "rim_vector_packed": rim_vector_out[0]["packed"][i],
                                    "rim_vector_grid": rim_vector_out[0]["grid"][i],
-                                   "rim_vector_pomapf": rim_vector_out[0]["pomapf"][i]}
+                                   "rim_vector_pomapf": rim_vector_out[0]["pomapf"][i],
+                                   **{f"k1b_wide_{k}": v[i] for k, v in wide_out[0].items()},
+                                   **{k: v[i] for k, v in serve_e_out[0].items()}}
         rec["by_centres_per_block"] = shapes[i].pop("by_centres_per_block")
         rec["other_shapes"] = shapes[i]
+    record_b["other_shapes"]["serve_config_e"] = wide_out[1]
+    record_b["by_centres_per_block"]["serve_config_e"] = wide_out[2]
     record["launches"] = pomapf_out[0][0]
     record_b["launches"] = main_out[0][1]
     if not all(record_b["launches_by_path"][k] > 0
-               for k in ("main_path", "serve", "train", "train_ff_windows")):
+               for k in ("main_path", "serve", "train", "train_ff_windows", "serve_e",
+                         "k1b_wide_core_packed", "k1b_wide_train_recurrent",
+                         "k1b_wide_train_fused_windows", "k1b_wide_vector_packed")):
         print("chip_smoke: a packed path did not launch K1b", file=sys.stderr)
         return 1
     if record["launches"] <= 0:
         print("chip_smoke: the POMAPF path did not launch K1", file=sys.stderr)
         return 1
     if not (all(record["launches_by_path"][k] > 0
-                for k in ("rim_env", "rim_vector_grid", "rim_vector_pomapf"))
+                for k in ("rim_env", "rim_vector_grid", "rim_vector_pomapf", "ladder_PPO",
+                          "ladder_random"))
             and record_b["launches_by_path"]["rim_vector_packed"] > 0):
         print("chip_smoke: a rim path did not launch its kernel", file=sys.stderr)
         return 1

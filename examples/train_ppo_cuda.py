@@ -18,8 +18,7 @@ Fine-tuning the shipped recurrent policy on config D:
 Runs on the card unless ``--device cpu`` is given, and raises without
 one. A params checkpoint converts to the flax tree of the JAX package
 with ``pogema_torch.interop.params_to_flax``. Left out, against the JAX
-script: ``--tb-dir``, the device mesh, and the ``mixed*`` map pools
-(``maps.py`` is not ported yet).
+script: ``--tb-dir`` and the device mesh.
 """
 
 import argparse
@@ -30,7 +29,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises when there is no card) or 'cpu'")
@@ -50,8 +49,10 @@ def main():
     ap.add_argument("--on-target", default="restart")
     ap.add_argument("--maps", default="random",
                     choices=["random", "maze", "mixed", "mixed-random", "mixed-maze"],
-                    help="world distribution: Bernoulli 'random' (default) or 'maze' "
-                         "(sidewinder); the 'mixed*' pools are not ported yet")
+                    help="world distribution: Bernoulli 'random' (default), 'maze' "
+                         "(sidewinder), or the config-E mixed random+maze pool "
+                         "(pogema_torch.maps.mixed_pool; 'mixed-random' / 'mixed-maze' "
+                         "keep one half)")
     ap.add_argument("--density", type=float, default=0.3)
     ap.add_argument("--max-episode-steps", type=int, default=128)
     ap.add_argument("--model", choices=["fused", "recurrent", "conv"], default="fused",
@@ -80,11 +81,7 @@ def main():
                          "divisible by K.")
     ap.add_argument("--log-every", type=int, default=1,
                     help="fetch and print stats every k iters (one host fetch each)")
-    args = ap.parse_args()
-
-    if args.maps.startswith("mixed"):
-        raise SystemExit(f"--maps {args.maps}: the mixed map pools live in maps.py, which is "
-                         "not ported to pogema_torch yet; use 'random' or 'maze'")
+    args = ap.parse_args(argv)
 
     import numpy as np
     import torch
@@ -119,7 +116,17 @@ def main():
     auto_reset = "regen" if fused_ok else "cached"
     window = cfg.obs_radius * 2 + 1
     gen = torch.Generator().manual_seed(args.seed)
-    env_kw = dict(maze=args.maps == "maze", device=args.device)
+    map_bank = None
+    if args.maps.startswith("mixed"):
+        from pogema_torch.maps import mixed_pool
+
+        map_bank = mixed_pool(args.size)
+        half = len(map_bank) // 2
+        if args.maps == "mixed-random":
+            map_bank = map_bank[:half]
+        elif args.maps == "mixed-maze":
+            map_bank = map_bank[half:]
+    env_kw = dict(maze=args.maps == "maze", map_bank=map_bank, device=args.device)
 
     if args.model == "fused":
         core = PogemaCore(cfg, num_envs=args.envs, auto_reset_mode=auto_reset, **env_kw)

@@ -18,7 +18,8 @@ The host rim (upstream: pogema's user-facing surface): ``pogema_v0`` and
 the ``Pogema*`` envs (``envs``), the wrappers and framework adapters
 (``wrappers``, ``integrations``), the batched numpy
 ``PogemaVectorEnv``, the named maps (``maps``), the A* and planner
-policies and the evaluation harness (``toolbox``). Where gymnasium is
+policies, the evaluation harness (``toolbox``) and the SVG episode
+animation (``animation``). Where gymnasium is
 installed, ``gymnasium.make("PogemaTorch-v0", grid_config=...,
 device=...)`` builds a ``pogema_v0`` env; the JAX package keeps the id
 ``Pogema-v0``.
@@ -52,6 +53,7 @@ __all__ = [
     "OBSTACLE",
     "MOVES",
     "NUM_ACTIONS",
+    "__version__",
 ]
 
 
@@ -61,6 +63,10 @@ def __getattr__(name):
         from . import envs
 
         return getattr(envs, name)
+    if name in ("AnimationMonitor", "AnimationConfig"):
+        from . import animation
+
+        return getattr(animation, name)
     if name in ("AStarAgent", "BatchAStarAgent"):
         from . import a_star_policy
 

@@ -1,7 +1,8 @@
 """Feedforward window-embedding actor-critic.
 
 Counterpart of ``pogema_tpu/models/embed_actor_critic.py``
-(``EmbedActorCritic``, ``embed_state_windows``). The first layer is a
+(``EmbedActorCritic``, ``embed_state_windows``,
+``embed_state_windows_occ``). The first layer is a
 linear map of the egocentric observation ``[3, W, W]`` (obstacles,
 agents, target), so it is stored as one ``embed_kernel`` f32[3, W*W, E].
 
@@ -47,7 +48,7 @@ from torch import nn
 
 from ..core.obs import packed_observation
 from ..grid_config import NUM_ACTIONS
-from ..ops.windows import pairwise_agent_windows, target_onehot
+from ..ops.windows import extract_windows, pairwise_agent_windows, target_onehot
 
 
 def dense(x, layer: nn.Linear, dtype) -> torch.Tensor:
@@ -89,6 +90,32 @@ def embed_obs(embed_kernel, bias, dtype, obs) -> torch.Tensor:
     kernel = embed_kernel.to(dtype).float().reshape(-1, e)
     x = obs.to(dtype).float()
     return (torch.matmul(x, kernel) + bias.float()).to(dtype)
+
+
+def embed_state_windows_occ(embed_kernel, embed_bias, dtype, window,
+                            grids, agents_xy, targets_xy, active) -> torch.Tensor:
+    """The first layer from raw state, dtype[B, N, E], with the agents
+    channel read from a per-env occupancy grid: the counterpart of the
+    JAX function of that name, the same function as
+    :meth:`EmbedActorCritic.embed_state_windows` (held to it by the
+    tests). ``occ[b, x, y]`` counts the active agents on a cell (one
+    ``scatter_add_``), and both window blocks are the same
+    :func:`~pogema_torch.ops.windows.extract_windows` of a grid, as K1b
+    reads its obstacle bytes and counts on the card; an active agent
+    outside the P x P grid is seen by nobody, as there. Plain PyTorch on
+    any device, on no step path. Rounding as the JAX function: the
+    kernel and bias in ``dtype``, f32 accumulation, ``dtype`` once."""
+    w = window
+    b, p, _ = grids.shape
+    x, y = agents_xy[..., 0].long(), agents_xy[..., 1].long()
+    seen = active & (x >= 0) & (x < p) & (y >= 0) & (y < p)
+    occ = torch.zeros(b, p * p, dtype=torch.float32, device=grids.device)
+    occ.scatter_add_(1, (x * p + y).clamp(0, p * p - 1), seen.float())
+    n = agents_xy.shape[1]
+    obs = torch.cat([extract_windows(grids, agents_xy, w).reshape(b, n, w * w),
+                     extract_windows(occ.reshape(b, p, p), agents_xy, w).reshape(b, n, w * w),
+                     target_onehot(agents_xy, targets_xy, w).reshape(b, n, w * w)], dim=-1)
+    return embed_obs(embed_kernel, embed_bias.to(dtype), dtype, obs)
 
 
 class EmbedActorCritic(nn.Module):

@@ -42,8 +42,14 @@ from .windows import extract_windows_packed_ref, packed_lanes, packed_observatio
 # the launch keeps FILL blocks per SM.
 K1_AMORTISE, K1_FILL = 3, 32
 K1B_AMORTISE, K1B_FILL = 8, 8
-# K1b counts the active agents of a cell in 8 bits.
-K1B_MAX_AGENTS = 255
+# K1b counts the active agents of a cell in the 8 high bits of a 16-bit
+# cell up to K1B_NARROW_AGENTS agents per env, and in a 16-bit count array
+# beside the obstacle bytes above (the split layout, csrc/windows.cu).
+K1B_NARROW_AGENTS = 255
+K1B_MAX_AGENTS = 65535
+# An H100's shared memory per SM, and what the card holds back per
+# resident block (CUDA occupancy rules for compute capability 9.0).
+SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 233472, 1024
 
 _fns: dict = {}
 _devices: dict = {}  # device index -> (functions, SM count, most shared memory of a block)
@@ -56,9 +62,9 @@ def _lib() -> dict:
         for name, args in (("pogema_windows_init", []),
                            ("pogema_windows_max_smem", []),
                            ("pogema_packed_windows_smem", [i32, i32]),
-                           ("pogema_packed_observation_smem", [i32, i32, i32]),
+                           ("pogema_packed_observation_smem", [i32] * 4),
                            ("pogema_packed_windows", [ptr] * 3 + [i32] * 6 + [ptr]),
-                           ("pogema_packed_observation", [ptr] * 5 + [i32] * 5 + [ptr])):
+                           ("pogema_packed_observation", [ptr] * 5 + [i32] * 6 + [ptr])):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, i32
             _fns[name] = fn
@@ -99,6 +105,32 @@ def centres_per_block(b: int, m: int, sms: int, grid_bytes: int, row_bytes: int,
     if b * -(-m // mc) < sms:
         mc = rounded(max(1, m // -(-sms // max(b, 1))))
     return mc
+
+
+def observation_wide(n: int) -> bool:
+    """K1b's cell layout for N agents per env: the split layout (16-bit
+    counts) where an 8-bit count could overflow, the 16-bit cell where it
+    cannot."""
+    return n > K1B_NARROW_AGENTS
+
+
+def observation_smem_bytes(p: int, w: int, mc: int, wide: bool) -> int:
+    """Dynamic shared memory of a K1b block, as
+    ``csrc/windows.cu::observation_smem_bytes`` reckons it: 2 bytes a cell
+    (with room to skew), 16 per agent of the chunk and one more, the row's
+    decode table, and for the split layout the obstacle bytes too."""
+    def up16(v):
+        return -(-v // 16) * 16
+
+    return (up16(2 * (p * p + 4)) + 16 * (mc + 1) + up16(4 * 3 * w * w)
+            + (p * p + 16 if wide else 0))
+
+
+def observation_fill(p: int, w: int, n: int) -> int:
+    """Blocks per SM that K1b's chunk picker aims for: K1B_FILL, or fewer
+    where shared memory holds fewer blocks of the largest chunk (N agents)."""
+    block = observation_smem_bytes(p, w, n, observation_wide(n)) + SMEM_PER_BLOCK_RESERVED
+    return max(1, min(K1B_FILL, SMEM_PER_SM // block))
 
 
 def _check_common(grid, per_agent, w: int):
@@ -173,17 +205,18 @@ def _launch_observation(grid, agents_xy, targets_xy, active, w: int, mc: int) ->
     :func:`packed_observation_cuda` has checked."""
     b, p, _ = grid.shape
     n = agents_xy.shape[1]
+    wide = observation_wide(n)
     fns, _, max_smem = _prepare(grid.device)
     if not 1 <= mc <= n:
         raise ValueError(f"agents per block must be in [1, {n}], got {mc}")
-    if fns["pogema_packed_observation_smem"](p, w, mc) > max_smem:
+    if fns["pogema_packed_observation_smem"](p, w, mc, wide) > max_smem:
         raise ValueError(f"a {p}x{p} grid with {mc} agents per block exceeds the 227 KB of "
                          f"shared memory of a block")
     out = torch.empty(b, n, 3 * w * w, dtype=torch.float32, device=grid.device)
     with torch.cuda.device(grid.device):
         rc = fns["pogema_packed_observation"](
             grid.data_ptr(), agents_xy.data_ptr(), targets_xy.data_ptr(), active.data_ptr(),
-            out.data_ptr(), b, p, n, w, mc, torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), b, p, n, w, mc, int(wide), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"packed_observation_kernel launch failed: CUDA error {rc}")
     packed_observation_cuda.launches += 1
@@ -201,8 +234,9 @@ def packed_observation_cuda(grid: torch.Tensor, agents_xy: torch.Tensor,
     The kernel counts agents into a grid, so an active agent outside the
     grid is seen by nobody, while the plain version, which compares
     agents pairwise as the JAX package does, would still show it to a
-    neighbour that is outside as well. A cell's count has 8 bits: on the
-    card more than 255 agents per env are refused."""
+    neighbour that is outside as well. Up to 255 agents per env a cell's
+    count has 8 bits, above that 16 (:func:`observation_wide`): on the
+    card more than 65535 agents per env are refused."""
     _check_common(grid, (("agents_xy", agents_xy, torch.int32, (2,)),
                          ("targets_xy", targets_xy, torch.int32, (2,)),
                          ("active", active, torch.bool, ())), w)
@@ -221,7 +255,7 @@ def packed_observation_cuda(grid: torch.Tensor, agents_xy: torch.Tensor,
     # Chunks of four agents start on 16-byte boundaries of the output.
     return _launch_observation(grid, agents_xy, targets_xy, active, w,
                                centres_per_block(b, n, sms, p * p, 12 * w * w, K1B_AMORTISE,
-                                                 K1B_FILL, multiple=4))
+                                                 observation_fill(p, w, n), multiple=4))
 
 
 packed_observation_cuda.launches = 0

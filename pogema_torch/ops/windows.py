@@ -40,6 +40,12 @@ def extract_windows(grid, xy, w: int) -> torch.Tensor:
     return torch.where(valid, vals, torch.zeros((), dtype=torch.float32, device=vals.device))
 
 
+def neighborhoods3x3(grid, xy) -> torch.Tensor:
+    """f32[B, M, 3, 3] neighbourhoods, enough to validate all 5 moves:
+    :func:`extract_windows` with w = 3."""
+    return extract_windows(grid, xy, 3)
+
+
 def extract_windows_packed_ref(grid, xy, w: int) -> torch.Tensor:
     """Plain version of the packed-window kernel: f32[B, M, L] with the
     window flattened row-major into lanes [0, w*w) and zeros after,

@@ -78,8 +78,8 @@ def _imported_roots(path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((ROOT / "pogema_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "train_ppo_cuda.py"]
+    files = (sorted((ROOT / "pogema_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("*_cuda.py")))
     assert len(files) > 10
     names = {str(p.relative_to(ROOT)) for p in files}
     for must in ("pogema_torch/parallel/learner.py", "pogema_torch/parallel/rollout.py",

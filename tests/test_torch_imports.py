@@ -18,7 +18,8 @@ names = ["pogema_torch"] + [m.name for m in pkgutil.walk_packages(pogema_torch._
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-for name in ("pogema_v0", "Pogema", "PogemaVectorEnv", "GlobalPlannerPolicy", "BatchAStarAgent"):
+for name in ("pogema_v0", "Pogema", "PogemaVectorEnv", "GlobalPlannerPolicy", "BatchAStarAgent",
+             "AnimationMonitor", "AnimationConfig"):
     getattr(pogema_torch, name)
 print(len(names))
 """

@@ -38,7 +38,6 @@ from pogema_tpu.utils.checkpoint import restore_checkpoint
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32_TOL = 1e-5
 BF16_TOL = 1e-2
-WEIGHTS_NPZ = os.path.join(ROOT, "pogema_torch", "weights", "rec128_ft.npz")
 
 
 def _np_tree(tree):
@@ -188,22 +187,26 @@ def test_shipped_feedforward_checkpoint(dtype):
     _run_feedforward(params, dtype, radius=5, seed=7)
 
 
-def test_committed_weights_equal_the_checkpoint(rec128_ft):
-    """``pogema_torch/weights/rec128_ft.npz`` holds the f32 leaves of
-    ``.ckpt_rec128_ft`` for the card's machine (which has no orbax).
-    Regenerate it from the root of the repository with:
+@pytest.mark.parametrize("name", ["rec128_ft", "ppo64", "rec128", "rec256", "maze256"])
+def test_committed_weights_equal_the_checkpoint(name):
+    """``pogema_torch/weights/<name>.npz`` holds the f32 leaves of
+    ``.ckpt_<name>`` for the card's machine (which has no orbax).
+    Regenerate one from the root of the repository with:
 
-    python -c "import numpy as np; from pogema_tpu.utils.checkpoint import restore_checkpoint; from pogema_torch.interop import flatten_params; np.savez('pogema_torch/weights/rec128_ft.npz', **flatten_params(restore_checkpoint('.ckpt_rec128_ft')))"
+    python -c "import os, numpy as np; from pogema_tpu.utils.checkpoint import restore_checkpoint; from pogema_torch.interop import flatten_params; np.savez('pogema_torch/weights/rec128_ft.npz', **flatten_params(restore_checkpoint(os.path.abspath('.ckpt_rec128_ft'))))"
     """
-    want = flatten_params(_np_tree(rec128_ft))
-    with np.load(WEIGHTS_NPZ) as z:
+    tree = _np_tree(restore_checkpoint(os.path.join(ROOT, f".ckpt_{name}")))
+    path = os.path.join(ROOT, "pogema_torch", "weights", f"{name}.npz")
+    want = flatten_params(tree)
+    with np.load(path) as z:
         assert sorted(z.files) == sorted(want)
         for k in want:
             assert z[k].dtype == np.float32 and z[k].shape == want[k].shape, k
             np.testing.assert_array_equal(z[k], want[k], err_msg=k)
-    model = load_policy(WEIGHTS_NPZ, device="cpu")
-    ref, _ = params_from_flax(_np_tree(rec128_ft))
-    assert isinstance(model, RecurrentEmbedActorCritic) and model.dtype == torch.bfloat16
+    model = load_policy(path, device="cpu")
+    ref, _ = params_from_flax(tree)
+    assert type(model) is type(ref) and model.dtype == torch.bfloat16
+    assert isinstance(model, EmbedActorCritic if name == "ppo64" else RecurrentEmbedActorCritic)
     for k, v in ref.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
 

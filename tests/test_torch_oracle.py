@@ -1,8 +1,10 @@
-"""The port's ``step`` against the slow NumPy oracle
-(``pogema_tpu/utils/oracle.py::OracleEnv``) on random actions, for every
-collision system x ``on_target``: positions, rewards, terminated and
+"""The port's ``step`` against the port's slow NumPy oracle
+(``pogema_torch/utils/oracle.py::OracleEnv``) on random actions, for
+every collision system x ``on_target``: positions, rewards, terminated and
 truncated flags and the observations are equal exactly (integers, 0/1
-floats). In LifeLong ('restart') the oracle leaves the respawn to its
+floats). One case also holds the step to the JAX package's oracle
+(``pogema_tpu/utils/oracle.py``); ``tests/test_torch_utils.py`` holds the
+two oracles equal. In LifeLong ('restart') the oracle leaves the respawn to its
 caller, so the new goals are copied from the port's state after each
 step and everything else is still held to the oracle.
 """
@@ -13,7 +15,8 @@ import torch
 
 import pogema_tpu
 from pogema_torch import GridConfig, PogemaCore
-from pogema_tpu.utils.oracle import OracleEnv
+from pogema_torch.utils.oracle import OracleEnv
+from pogema_tpu.utils.oracle import OracleEnv as JaxOracleEnv
 
 STEPS, ENVS = 12, 4
 
@@ -22,13 +25,21 @@ STEPS, ENVS = 12, 4
 @pytest.mark.parametrize("system", ["priority", "block_both", "soft"])
 @pytest.mark.parametrize("seed,n", [(0, 5), (7, 2)])
 def test_step_matches_oracle(seed, n, system, on_target):
+    _run(seed, n, system, on_target, OracleEnv, GridConfig)
+
+
+def test_step_matches_the_jax_oracle():
+    _run(3, 4, "soft", "restart", JaxOracleEnv, pogema_tpu.GridConfig)
+
+
+def _run(seed, n, system, on_target, oracle_cls, config_cls):
     kw = dict(seed=seed, size=7, density=0.2, num_agents=n, obs_radius=2, max_episode_steps=8,
               collision_system=system, on_target=on_target)
     core = PogemaCore(GridConfig(**kw), num_envs=ENVS, device="cpu")
-    jcfg = pogema_tpu.GridConfig(**kw).to_static()
+    ocfg = config_cls(**kw).to_static()
     state, obs = core.reset(seed)
-    oracles = [OracleEnv(jcfg, state.obstacles[b].numpy(), state.agents_xy[b].numpy(),
-                         state.targets_xy[b].numpy()) for b in range(ENVS)]
+    oracles = [oracle_cls(ocfg, state.obstacles[b].numpy(), state.agents_xy[b].numpy(),
+                          state.targets_xy[b].numpy()) for b in range(ENVS)]
     for b, o in enumerate(oracles):
         np.testing.assert_array_equal(obs[b].numpy(), o.observe(), err_msg=f"reset obs, env {b}")
     rng = np.random.default_rng(seed)

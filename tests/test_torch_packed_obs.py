@@ -342,20 +342,49 @@ def test_k1b_kernel_matches_plain_version_on_card():
 
 
 @pytest.mark.cuda
-def test_k1b_counts_255_agents_on_a_cell_and_refuses_256_on_card():
+def test_k1b_counts_255_256_and_300_agents_on_a_cell_on_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the limit is the kernel's 8-bit count")
-    most = cuda_windows.K1B_MAX_AGENTS
+        pytest.skip("needs a CUDA device: the counts are the kernel's shared-memory cells")
     grid = torch.zeros(1, 12, 12, dtype=torch.uint8, device="cuda")
-    for cell in ((6, 6), (6, 7)):  # the low and the high half of a shared word
-        xy = torch.tensor(cell, dtype=torch.int32, device="cuda").expand(1, most, 2).contiguous()
-        args = (grid, xy, xy, torch.ones(1, most, dtype=torch.bool, device="cuda"))
-        got = cuda_windows.packed_observation_cuda(*args, 3)
-        assert torch.equal(got, tw.packed_observation_ref(*args, 3))
-        assert (got[0, :, 9 + 4] == most).all()
-    over = torch.zeros(1, most + 1, 2, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="255 agents"):
+    for count in (255, 256, 300):  # the 16-bit cell's most, and the split layout past it
+        for cell in ((6, 6), (6, 7)):  # the low and the high half of a shared word
+            xy = torch.tensor(cell, dtype=torch.int32, device="cuda").expand(1, count, 2)
+            xy = xy.contiguous()
+            args = (grid, xy, xy, torch.ones(1, count, dtype=torch.bool, device="cuda"))
+            got = cuda_windows.packed_observation_cuda(*args, 3)
+            assert torch.equal(got, tw.packed_observation_ref(*args, 3)), (count, cell)
+            assert (got[0, :, 9 + 4] == count).all()
+    over = torch.zeros(1, cuda_windows.K1B_MAX_AGENTS + 1, 2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="65535 agents"):
         cuda_windows.packed_observation_cuda(grid, over, over, over[..., 0] == 0, 3)
+
+
+@pytest.mark.parametrize("n,wide", [(1, False), (64, False), (255, False), (256, True),
+                                    (300, True), (1024, True)])
+def test_k1b_layout_and_shared_memory_by_agent_count(n, wide):
+    # Up to 255 agents the 16-bit cell (an 8-bit count above the obstacle
+    # byte), as configs C and D always ran; the split layout above it adds
+    # the obstacle bytes beside 16-bit counts.
+    assert cuda_windows.observation_wide(n) is wide
+    smem = cuda_windows.observation_smem_bytes
+    packed = 2 * (74 * 74 + 4) + 16 * 65 + 1456  # P = 74, w = 11, 64 agents per block
+    assert smem(74, 11, 64, False) == packed == 13456
+    assert smem(74, 11, 64, True) == packed + 74 * 74 + 16
+    assert smem(138, 11, 256, True) == 38096 + 16 * 257 + 1456 + 19044 + 16 == 62724
+    assert smem(13, 3, 4, True) == 352 + 80 + 112 + 169 + 16  # each part rounded to 16 bytes
+
+
+def test_k1b_fill_follows_shared_memory():
+    # Configs C and D keep K1B_FILL blocks per SM; config E's split layout
+    # at P = 138 fits three blocks of 256 agents in an SM's 228 KB.
+    fill = cuda_windows.observation_fill
+    assert fill(74, 11, 64) == fill(74, 11, 128) == cuda_windows.K1B_FILL == 8
+    assert fill(138, 11, 256) == 3 and fill(138, 11, 255) == 5
+    pick = cuda_windows.centres_per_block
+    assert pick(1024, 256, 132, 138 * 138, 12 * 121, cuda_windows.K1B_AMORTISE,
+                fill(138, 11, 256), multiple=4) == 256
+    assert pick(4, 256, 132, 138 * 138, 12 * 121, cuda_windows.K1B_AMORTISE,
+                fill(138, 11, 256), multiple=4) == 4
 
 
 @pytest.mark.cuda

@@ -65,6 +65,17 @@ def test_extract_windows_off_grid_reads_zero(ref):
     assert_trees_equal(want, got)
 
 
+def test_neighborhoods3x3_matches_jax(ref):
+    # Exported from both ops packages; centres on the grid's edge read 0 outside.
+    from pogema_torch.ops import neighborhoods3x3
+
+    grid, xy = _inputs(7, p=10, margin=0)
+    got = neighborhoods3x3(torch.as_tensor(grid), torch.as_tensor(xy))
+    want = jax.vmap(jw.neighborhoods3x3)(jnp.asarray(grid), jnp.asarray(xy))
+    assert got.shape == (3, 6, 3, 3)
+    assert_trees_equal(want, got)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("w", [3, 5, 11])
 def test_packed_ref_matches_pallas_interpret(seed, w, ref):
