@@ -95,6 +95,23 @@ result line):
      (embed/hidden 256, 'auto' picks 'pre': no kernel launch, the grid
      convolutions counted), then one step with obstacle_path='windows'
      (K1b 64 + 1 + 2*4 times);
+ 17. mesh_one: the multi-device learner (``pogema_torch.parallel.mesh``)
+     on a mesh of one NCCL rank: two train steps of each flavour at the
+     train_agree size with the mesh against ``mesh=None``, integer state
+     and key equal, floats within TRAIN_*_TOL;
+ 18. mesh_gloo: four ranks on the card over gloo with CUDA tensors
+     (``chip_smoke.py --mesh-worker``, started with torchrun's
+     environment), meshes data = 4 and data 2 x model 2: the same small
+     agreement for every flavour, then one config-D recurrent train step
+     (rec128_ft bf16, T = 64, 2 x 8 minibatches) against the one-process
+     step from the same state: each rank's initial rows, the share of
+     rollout actions that agree, the stats and their largest difference,
+     K1b launches per rank (exact: the rollout, the bootstrap and each
+     replayed step of a minibatch share the rank holds) and their sum,
+     seconds by part, bytes all-reduced and all-gathered per step; then
+     ``dryrun_multichip(4)``;
+ 19. mesh_nccl: the cases of mesh_gloo over NCCL, one rank per card, on
+     min(4, cards) cards; on one card it prints "not run (1 card)";
 then k1_shapes (both kernels timed at the serving and the update shape
 and for one env of 64 and of 128 agents, and at three shapes for 16 to
 128 centres per block), one JSON line listing the kernels and, last, the
@@ -108,6 +125,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2266,6 +2284,414 @@ def phase_rim_toolbox(device):
     return out
 
 
+# -- the multi-device learner -------------------------------------------------
+
+# mesh_gloo / mesh_nccl: ranks on one card over gloo (NCCL refuses two ranks
+# on one GPU), and one rank per card over NCCL where there are several.
+MESH_WORKERS = 4
+MESH_TIMEOUT_S = 600
+MESH_WORKER = os.path.abspath(__file__)  # the script each rank runs
+MESH_FLAVOURS = ("obs", "fused_windows", "fused_pre", "recurrent")
+# A meshed config-D step against the one-process step from the same state
+# (bf16, products of other shapes and other sums): its stats within
+# MESH_D_STATS_TOL (relative, absolute under 1), and at least
+# MESH_D_ACTIONS_AGREE of its rollout actions equal. An H100 read 2.4e-5
+# (data 4) and 8.8e-6 (2 x 2), and every action equal; a rank that
+# normalised advantages or averaged losses over its own rows, or gradients
+# scaled by the model size, move the stats by far more.
+MESH_D_STATS_TOL = 2e-4
+MESH_D_ACTIONS_AGREE = 0.999
+
+
+def _mesh_cases(world):
+    """The (data, model) meshes that ``world`` ranks run."""
+    return [(4, 1), (2, 2)] if world == 4 else [(world, 1)]
+
+
+def _whole_run(ts, mesh):
+    """A train state's tensors, gathered over ``mesh`` (None: as they are)."""
+    from pogema_torch.models import gather_params
+    from pogema_torch.parallel import gather_batch
+
+    if mesh is None:
+        return ts.env_state, ts.key, ts.params, ts.opt_state["mu"]
+    return (gather_batch(ts.env_state, mesh), ts.key, gather_params(ts.params, mesh),
+            gather_params(ts.opt_state["mu"], mesh))
+
+
+def _small_two_steps(flavour, device, seed, mesh):
+    """Two train steps of ``flavour`` at the train_agree size from
+    ``init_*(key seed + 1)``, over ``mesh`` or (None) in one process.
+    Returns (stats of both steps, gathered state, first-minibatch
+    gradients of the first step, Adam steps taken, learning rate,
+    (K1, K1b) launched by the two steps, each count set to 0 just before
+    a step and read just after it)."""
+    from pogema_torch.models import gather_params
+
+    core, model, cfg, init, make = _small_train_setup(flavour, device, seed)
+    ts, tx = init(core, model, None, cfg, core.make_key(seed + 1), mesh=mesh)
+    grads = []
+
+    def hook(epoch, i, loss, g):
+        if not grads:
+            grads.append(g if mesh is None else gather_params(g, mesh))
+
+    step = make(core, model, cfg, tx, grad_hook=hook, mesh=mesh)
+    k1, k1b = _kernels()
+    stats, launches = [], [0, 0]
+    for _ in range(2):
+        k1.launches = k1b.launches = 0
+        ts, st = step(ts)
+        launches[0] += k1.launches
+        launches[1] += k1b.launches
+        stats.append({k: float(v) for k, v in st.items()})
+    return (stats, _whole_run(ts, mesh), grads[0], 2 * cfg.epochs * cfg.minibatches, cfg.lr,
+            tuple(launches))
+
+
+def _mesh_agree(flavour, device, mesh, label):
+    """Two train steps of ``flavour`` (small, f32, seed 0) over ``mesh``
+    against ``mesh=None`` in this process: integer state and key equal,
+    stats, first-minibatch gradients, Adam's first moment and parameters
+    within TRAIN_*_TOL. Returns (report line, (K1, K1b) launched by the
+    meshed steps, by the one-process steps)."""
+    import torch
+
+    st_m, (env_m, key_m, p_m, mu_m), g_m, adam_steps, lr, launches_m = _small_two_steps(
+        flavour, device, 0, mesh)
+    st_r, (env_r, key_r, p_r, mu_r), g_r, _, _, launches_r = _small_two_steps(
+        flavour, device, 0, None)
+    if not (_states_equal(env_m, env_r) and torch.equal(key_m, key_r)):
+        raise AssertionError(f"{label} {flavour}: integer state or key differs from one process")
+    worst_stat = max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+                     for a, b in zip(st_m, st_r) for k in b)
+    if not all(math.isfinite(v) for s in st_m for v in s.values()):
+        raise AssertionError(f"{label} {flavour}: non-finite stats {st_m}")
+    scale = max(float(v.abs().max()) for v in g_r.values())
+    worst_grad = max(float((g_m[k] - g_r[k]).abs().max()) for k in g_r) / scale
+    worst_mu = max(float((mu_m[k] - mu_r[k]).abs().max()) for k in mu_r) / scale
+    diffs = torch.cat([(p_m[k] - p_r[k]).abs().flatten() for k in p_r])
+    share = float((diffs <= TRAIN_PARAM_TOL).float().mean())
+    line = (f"{label} {flavour}: integer state and key equal to one process; "
+            f"stats {worst_stat:.2e}, first-minibatch gradients {worst_grad:.2e}, Adam mu "
+            f"{worst_mu:.2e}, parameters max {float(diffs.max()):.2e}, {share:.4f} within "
+            f"{TRAIN_PARAM_TOL}; (K1, K1b) launched {launches_m}, one process {launches_r}")
+    if (worst_stat > TRAIN_STATS_TOL or worst_grad > TRAIN_GRAD_TOL
+            or worst_mu > TRAIN_GRAD_TOL or share < 0.99
+            or float(diffs.max()) > 2 * lr * adam_steps):
+        raise AssertionError(f"beyond the tolerance: {line}")
+    return line, launches_m, launches_r
+
+
+def phase_mesh_one(device):
+    """A mesh of one NCCL rank on the card (a world of one): two train
+    steps of each flavour at the train_agree size, with ``mesh`` against
+    ``mesh=None``; each flavour's meshed steps launch K1 and K1b as often
+    as its one-process steps ('pre' launches neither). Returns ((K1, K1b) launches of the meshed
+    steps, report)."""
+    import torch
+    import torch.distributed as dist
+
+    from pogema_torch.parallel import make_mesh
+
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # f32 convolutions in f32, as the one-process run
+    mesh = make_mesh(device=device)
+    report, launches = [], [0, 0]
+    try:
+        if dist.get_backend() != "nccl" or mesh.shape != (1, 1):
+            raise AssertionError(f"mesh_one: backend {dist.get_backend()}, mesh {mesh.shape}")
+        for flavour in MESH_FLAVOURS:
+            line, launches_m, launches_r = _mesh_agree(flavour, device, mesh, "mesh_one 1x1")
+            report.append(line)
+            if launches_m != launches_r:
+                raise AssertionError(f"mesh_one {flavour}: (K1, K1b) launched {launches_m} "
+                                     f"meshed, {launches_r} in one process")
+            launches[0] += launches_m[0]
+            launches[1] += launches_m[1]
+        if not all(launches):  # K1: the obs flavour; K1b: 'windows' and recurrent
+            raise AssertionError(f"mesh_one: (K1, K1b) launched {tuple(launches)}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+        dist.destroy_process_group()
+        print("mesh_one (world of one NCCL rank, f32, seed 0, two train steps, meshed vs "
+              f"mesh=None; tolerances: stats {TRAIN_STATS_TOL}, gradients {TRAIN_GRAD_TOL}, "
+              f"parameters 99% within {TRAIN_PARAM_TOL}):\n  " + "\n  ".join(report), flush=True)
+    return tuple(launches), report
+
+
+def _env_hashes(state):
+    """One int64 per env: a position-weighted sum of its grid, agents and
+    targets (equal rows give equal hashes)."""
+    import torch
+
+    b = state.agents_xy.shape[0]
+    out = torch.zeros(b, dtype=torch.int64, device=state.agents_xy.device)
+    for t in (state.obstacles, state.agents_xy, state.targets_xy):
+        flat = t.reshape(b, -1).long()
+        w = torch.arange(1, flat.shape[1] + 1, device=flat.device)
+        out = out * 1000003 + (flat * w).sum(dim=1)
+    return out
+
+
+def _config_d_setup(device, mesh=None):
+    """(core, model, config, train state, optimizer) of the config-D
+    recurrent learner from the shipped rec128_ft weights (bf16), key 1."""
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch import parallel as tp
+    from pogema_torch.interop import load_policy
+
+    core = PogemaCore(GridConfig(seed=0, **CONFIG_D), num_envs=NUM_ENVS_D,
+                      auto_reset_mode="regen", device=device)
+    model = load_policy(WEIGHTS, device=device)
+    cfg = tp.PPOConfig(**TRAIN_D_PPO)
+    ts, tx = tp.init_recurrent_train_state(core, model, None, cfg, core.make_key(1), mesh=mesh)
+    return core, model, cfg, ts, tx
+
+
+def _config_d_step(device, mesh=None, lo=0):
+    """The rollout a config-D train step makes (its actions), then the
+    step itself, over ``mesh`` or in one process: stats, seconds by part,
+    (K1, K1b) launches and bytes all-reduced / all-gathered in the step,
+    the minibatches in which this rank held rows."""
+    import torch
+
+    from pogema_torch import parallel as tp
+    from pogema_torch.parallel import mesh as pm
+    from pogema_torch.parallel.rollout import make_recurrent_rollout_fn
+
+    core, model, cfg, ts, tx = _config_d_setup(device, mesh)
+    init_hashes = _env_hashes(ts.env_state)
+    traj = make_recurrent_rollout_fn(core, model.step_from_state, cfg.rollout_steps,
+                                     env_offset=lo)(ts.env_state, ts.initial_env_state, ts.h,
+                                                    ts.key)[3]
+    actions = traj.actions.to(torch.int8)
+    del traj
+    k1, k1b = _kernels()
+    held = []
+    start, hook, seconds = _sync_clock()
+    step = tp.make_recurrent_train_step(core, model, cfg, tx,
+                                        grad_hook=lambda e, i, loss, g: held.append(
+                                            float(loss) != 0.0),
+                                        phase_hook=hook, mesh=mesh)
+    k1.launches = k1b.launches = 0
+    pm.all_reduce_sum.bytes = pm.all_gather_cat.bytes = 0
+    start()
+    ts, stats = step(ts)
+    torch.cuda.synchronize()
+    out = {"stats": {k: float(v) for k, v in stats.items()}, "seconds": dict(seconds),
+           "seconds_total": sum(seconds.values()), "k1": k1.launches, "k1b": k1b.launches,
+           "all_reduce_bytes": pm.all_reduce_sum.bytes,
+           "all_gather_bytes": pm.all_gather_cat.bytes, "minibatches_held": sum(held),
+           "minibatches": len(held), "rollout_steps": cfg.rollout_steps}
+    check_state_invariants(ts.env_state)
+    return out, init_hashes, actions
+
+
+def mesh_worker(spec_path) -> int:
+    """One rank of mesh_gloo / mesh_nccl (started by ``_mesh_spawn`` with
+    torchrun's environment): for each mesh of its world, the small
+    train-step agreement of every flavour and one config-D train step;
+    with four ranks the dry run. Writes ``rank<r>.json`` beside the
+    spec."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from pogema_torch.parallel import initialize_distributed, make_mesh
+    from pogema_torch.parallel.dryrun import dryrun_multichip
+    from pogema_torch.parallel.mesh import data_rows
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    initialize_distributed(backend=spec["backend"], device=device,
+                           timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    torch.backends.cudnn.allow_tf32 = False
+    ref = np.load(spec["reference"])
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(), "cases": {}}
+    for case in _mesh_cases(world):
+        mesh = make_mesh(*case, device=device)
+        label = f"mesh_{spec['backend']} {case[0]}x{case[1]}"
+        small = [_mesh_agree(flavour, device, mesh, label)[0] for flavour in MESH_FLAVOURS]
+        lo, hi = data_rows(mesh, NUM_ENVS_D)
+        rec, hashes, actions = _config_d_step(device, mesh, lo)
+        rec["init_rows_equal"] = bool(np.array_equal(hashes.cpu().numpy(),
+                                                     ref["init_hashes"][lo:hi]))
+        rec["actions_agree"] = int((actions.cpu().numpy() == ref["actions"][:, lo:hi]).sum())
+        rec["actions"] = int(actions.numel())
+        rec["envs"] = [lo, hi]
+        rec["small"] = small
+        out["cases"][f"{case[0]}x{case[1]}"] = rec
+    if world == 4:
+        fused, recurrent = dryrun_multichip(4, device)
+        out["dryrun"] = {"fused_loss": fused["loss"], "recurrent_loss": recurrent["loss"]}
+    with open(os.path.join(os.path.dirname(spec_path), f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_spawn(backend, world, work_dir, reference, device):
+    """Run ``world`` ranks of ``mesh_worker`` (one card for all over gloo,
+    one card each over NCCL) and return their results by rank. A rank
+    that fails stops the others at once; every process is waited for."""
+    os.makedirs(work_dir, exist_ok=True)
+    spec_path = os.path.join(work_dir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"backend": backend, "reference": reference, "device": device}, f)
+    port = _free_port()
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), LOCAL_RANK=str(rank if backend == "nccl" else 0),
+                   OMP_NUM_THREADS="2")
+        log = open(os.path.join(work_dir, f"rank{rank}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, MESH_WORKER, "--mesh-worker", spec_path],
+                                      env=env, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT))
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        tails = []
+        for rank in range(world):
+            with open(os.path.join(work_dir, f"rank{rank}.log")) as f:
+                tails.append(f"rank {rank} (exit {codes[rank]}):\n" + f.read()[-3000:])
+        raise AssertionError(f"{backend} ranks failed:\n" + "\n".join(tails))
+    results = []
+    for rank in range(world):
+        with open(os.path.join(work_dir, f"rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+_MESH_REF = {}
+
+
+def _mesh_reference(device):
+    """The one-process config-D step that the meshed ones are held to,
+    computed once: its record, and an .npz (under build/) of the initial
+    state's env hashes and the rollout's actions."""
+    import numpy as np
+
+    if not _MESH_REF:
+        rec, hashes, actions = _config_d_step(device)
+        path = os.path.join(ROOT, "build", "mesh", "reference.npz")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez(path, init_hashes=hashes.cpu().numpy(), actions=actions.cpu().numpy())
+        _MESH_REF.update(rec=rec, path=path)
+        print("mesh reference (one process, config D, rec128_ft bf16): "
+              + json.dumps(rec), flush=True)
+    return _MESH_REF["rec"], _MESH_REF["path"]
+
+
+def _mesh_phase(device, backend, world):
+    """The meshes of ``world`` ranks over ``backend`` against the one-process
+    step: prints each case and returns ({path: (K1, K1b) summed over the
+    ranks}, summary)."""
+    ref, path = _mesh_reference(device)
+    t0 = time.perf_counter()
+    results = _mesh_spawn(backend, world, os.path.join(ROOT, "build", "mesh", backend), path,
+                          device)
+    wall = time.perf_counter() - t0
+    launches, summary = {}, {"ranks": world, "backend": backend, "wall_s": wall, "cases": {}}
+    t, m = TRAIN_D_PPO["rollout_steps"], TRAIN_D_PPO["minibatches"]
+    for case in results[0]["cases"]:
+        recs = [r["cases"][case] for r in results]
+        for line in recs[0]["small"]:
+            print("  " + line, flush=True)
+        stats = recs[0]["stats"]
+        if any(r["stats"] != stats for r in recs):
+            raise AssertionError(f"{backend} {case}: the ranks' stats differ")
+        if not all(math.isfinite(v) for v in stats.values()):
+            raise AssertionError(f"{backend} {case}: non-finite stats {stats}")
+        if not 0.0 < stats["entropy"] < math.log(5) or stats["episodes_finished"] != 0.0:
+            raise AssertionError(f"{backend} {case}: entropy {stats['entropy']}, "
+                                 f"{stats['episodes_finished']} episodes finished")
+        if not all(r["init_rows_equal"] for r in recs):
+            raise AssertionError(f"{backend} {case}: a rank's initial state is not its rows of "
+                                 "the one-process state")
+        for r in recs:  # K1b: the rollout, the bootstrap, each replayed step of a held share
+            want = t + 1 + t * r["minibatches_held"]
+            if (r["k1"], r["k1b"]) != (0, want) or r["minibatches"] != 2 * m:
+                raise AssertionError(f"{backend} {case}: (K1, K1b) launched ({r['k1']}, "
+                                     f"{r['k1b']}), expected (0, {want})")
+        agree = sum(r["actions_agree"] for r in recs) / sum(r["actions"] for r in recs)
+        diff = max(abs(stats[k] - ref["stats"][k]) / max(1.0, abs(ref["stats"][k]))
+                   for k in stats)
+        if diff > MESH_D_STATS_TOL or agree < MESH_D_ACTIONS_AGREE:
+            raise AssertionError(f"{backend} {case}: stats {diff:.3e} from one process (limit "
+                                 f"{MESH_D_STATS_TOL}), {agree:.6f} of the rollout actions "
+                                 f"equal (floor {MESH_D_ACTIONS_AGREE})")
+        launches[f"mesh_{backend}_{case}"] = (sum(r["k1"] for r in recs),
+                                              sum(r["k1b"] for r in recs))
+        rec = {"stats": stats, "stats_max_rel_diff_vs_one_process": diff,
+               "actions_agree_share": agree,
+               "k1b_by_rank": [r["k1b"] for r in recs],
+               "k1b_sum": sum(r["k1b"] for r in recs),
+               "seconds_by_rank": [r["seconds"] for r in recs],
+               "seconds_total_max": max(r["seconds_total"] for r in recs),
+               "one_process_seconds": ref["seconds"],
+               "all_reduce_bytes_by_rank": [r["all_reduce_bytes"] for r in recs],
+               "all_gather_bytes_by_rank": [r["all_gather_bytes"] for r in recs]}
+        summary["cases"][case] = rec
+        print(f"mesh_{backend} {case}: " + json.dumps(rec), flush=True)
+    if "dryrun" in results[0]:
+        losses = {json.dumps(r["dryrun"], sort_keys=True) for r in results}
+        if len(losses) != 1:
+            raise AssertionError(f"{backend} dryrun: the ranks' losses differ: {losses}")
+        summary["dryrun"] = results[0]["dryrun"]
+        print(f"mesh_{backend} dryrun_multichip(4): {results[0]['dryrun']}", flush=True)
+    print(f"mesh_{backend}: {world} ranks in {wall:.1f} s (start, build load, cases)",
+          flush=True)
+    return launches, summary
+
+
+def phase_mesh_gloo(device):
+    """Four ranks on the one card over gloo with CUDA tensors: data = 4 and
+    data 2 x model 2, each the small agreement of every flavour and one
+    config-D train step (1024 envs x 128 agents, rec128_ft bf16, T = 64,
+    2 epochs x 8 minibatches) against the one-process step from the same
+    state; then the dry run at 4 ranks."""
+    return _mesh_phase(device, "gloo", MESH_WORKERS)
+
+
+def phase_mesh_nccl(device):
+    """The cases of mesh_gloo over NCCL on min(4, cards) cards, one rank
+    each; not run on one card."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print("mesh_nccl: not run (1 card)", flush=True)
+        return {}, None
+    return _mesh_phase(device, "nccl", min(MESH_WORKERS, count))
+
+
 def main() -> int:
     try:
         import torch
@@ -2282,6 +2708,8 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-worker":
+        return mesh_worker(sys.argv[2])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -2351,13 +2779,16 @@ def main() -> int:
     phase("train_agree", phase_train_agree, device)
     train_out = phase("train", phase_train, device)
     train_ff_out = phase("train_ff", phase_train_ff, device)
+    mesh_one_out = phase("mesh_one", phase_mesh_one, device)
+    mesh_gloo_out = phase("mesh_gloo", phase_mesh_gloo, device)
+    mesh_nccl_out = phase("mesh_nccl", phase_mesh_nccl, device)
     if profiling:
         phase("profile_train", profile_train, device)
 
     shapes = phase("k1_shapes", phase_k1_shapes, device)
     if failed or None in (record, record_b, wide_out, main_out, pomapf_out, serve_out,
                           serve_e_out, train_out, train_ff_out, shapes, rim_env_out,
-                          rim_vector_out):
+                          rim_vector_out, mesh_one_out, mesh_gloo_out, mesh_nccl_out):
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     # Each kernel's launches on the paths driven above, its counter set to
@@ -2375,7 +2806,10 @@ def main() -> int:
                                    "rim_vector_grid": rim_vector_out[0]["grid"][i],
                                    "rim_vector_pomapf": rim_vector_out[0]["pomapf"][i],
                                    **{f"k1b_wide_{k}": v[i] for k, v in wide_out[0].items()},
-                                   **{k: v[i] for k, v in serve_e_out[0].items()}}
+                                   **{k: v[i] for k, v in serve_e_out[0].items()},
+                                   "mesh_one": mesh_one_out[0][i],
+                                   **{k: v[i] for k, v in mesh_gloo_out[0].items()},
+                                   **{k: v[i] for k, v in mesh_nccl_out[0].items()}}
         rec["by_centres_per_block"] = shapes[i].pop("by_centres_per_block")
         rec["other_shapes"] = shapes[i]
     record_b["other_shapes"]["serve_config_e"] = wide_out[1]
@@ -2385,7 +2819,8 @@ def main() -> int:
     if not all(record_b["launches_by_path"][k] > 0
                for k in ("main_path", "serve", "train", "train_ff_windows", "serve_e",
                          "k1b_wide_core_packed", "k1b_wide_train_recurrent",
-                         "k1b_wide_train_fused_windows", "k1b_wide_vector_packed")):
+                         "k1b_wide_train_fused_windows", "k1b_wide_vector_packed", "mesh_one",
+                         *mesh_gloo_out[0], *mesh_nccl_out[0])):
         print("chip_smoke: a packed path did not launch K1b", file=sys.stderr)
         return 1
     if record["launches"] <= 0:

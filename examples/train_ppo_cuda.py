@@ -15,10 +15,21 @@ Fine-tuning the shipped recurrent policy on config D:
       --entropy-coef 0.003 --init-params pogema_torch/weights/rec128_ft.npz \\
       --checkpoint runs/rec128_ft2 --iters 200
 
+Across cards, one rank per card, as the JAX script's device mesh
+(``make_mesh()``: the env batch split over 'data'; ``--envs`` is the
+global batch):
+
+  torchrun --nproc-per-node 4 examples/train_ppo_cuda.py --envs 4096 ...
+  torchrun --nproc-per-node 2 examples/train_ppo_cuda.py --device cpu ...   # gloo
+
+Without ``torchrun`` it is one process, as before. Rank 0 prints, logs
+and saves the params; with ``--checkpoint-every`` each rank saves and
+resumes its own train state (``<checkpoint>_state_rank<r>``).
+
 Runs on the card unless ``--device cpu`` is given, and raises without
 one. A params checkpoint converts to the flax tree of the JAX package
 with ``pogema_torch.interop.params_to_flax``. Left out, against the JAX
-script: ``--tb-dir`` and the device mesh.
+script: ``--tb-dir``.
 """
 
 import argparse
@@ -85,6 +96,7 @@ def main(argv=None):
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from pogema_torch import GridConfig, PogemaCore
     from pogema_torch.interop import state_from_flax, unflatten_params
@@ -94,8 +106,10 @@ def main(argv=None):
         init_fused_train_state,
         init_recurrent_train_state,
         init_train_state,
+        initialize_distributed,
         make_fused_train_many,
         make_fused_train_step,
+        make_mesh,
         make_recurrent_train_many,
         make_recurrent_train_step,
         make_train_step,
@@ -105,6 +119,11 @@ def main(argv=None):
         restore_checkpoint,
         save_checkpoint,
     )
+
+    # Under torchrun: one rank per card (NCCL), or gloo with --device cpu.
+    initialize_distributed(device=args.device)
+    mesh = make_mesh(device=args.device) if dist.is_initialized() else None
+    rank = dist.get_rank() if mesh is not None else 0
 
     cfg = GridConfig(seed=0, size=args.size, num_agents=args.agents, obs_radius=args.obs_radius,
                      density=args.density, max_episode_steps=args.max_episode_steps,
@@ -153,7 +172,7 @@ def main(argv=None):
 
     # Append on --resume so that a restart keeps the earlier curve; the
     # header is written only when the file is empty.
-    log_file = open(args.log, "a" if args.resume else "w") if args.log else None
+    log_file = open(args.log, "a" if args.resume else "w") if args.log and rank == 0 else None
     if log_file:
         log_file.seek(0, 2)
 
@@ -161,28 +180,30 @@ def main(argv=None):
     kd = args.steps_per_dispatch
     if args.model in ("fused", "recurrent"):
         if args.model == "fused":
-            ts, tx = init_fused_train_state(core, model, params, ppo, key)
+            ts, tx = init_fused_train_state(core, model, params, ppo, key, mesh=mesh)
             mk_one, mk_many = make_fused_train_step, make_fused_train_many
         else:
-            ts, tx = init_recurrent_train_state(core, model, params, ppo, key)
+            ts, tx = init_recurrent_train_state(core, model, params, ppo, key, mesh=mesh)
             mk_one, mk_many = make_recurrent_train_step, make_recurrent_train_many
         if kd > 1:
             if args.iters % kd:
                 raise SystemExit("--iters must be divisible by --steps-per-dispatch")
             if args.checkpoint_every and args.checkpoint_every % kd:
                 raise SystemExit("--checkpoint-every must be divisible by --steps-per-dispatch")
-            train_step = mk_many(core, model, ppo, tx, kd)
+            train_step = mk_many(core, model, ppo, tx, kd, mesh=mesh)
         else:
-            train_step = mk_one(core, model, ppo, tx)
+            train_step = mk_one(core, model, ppo, tx, mesh=mesh)
     else:
         if kd > 1:
             raise SystemExit("--steps-per-dispatch needs --model fused or recurrent")
-        ts, tx = init_train_state(core, model, params, ppo, key)
-        train_step = make_train_step(core, model, ppo, tx)
+        ts, tx = init_train_state(core, model, params, ppo, key, mesh=mesh)
+        train_step = make_train_step(core, model, ppo, tx, mesh=mesh)
 
     if args.checkpoint:
         args.checkpoint = os.path.abspath(args.checkpoint)
     state_path = f"{args.checkpoint}_state" if args.checkpoint else None
+    if state_path and mesh is not None:
+        state_path = f"{state_path}_rank{rank}"
     if args.checkpoint_every and not state_path:
         raise SystemExit("--checkpoint-every requires --checkpoint")
     start_iter = 0
@@ -205,7 +226,7 @@ def main(argv=None):
         it = it + kd - 1  # last train step of this call
         if args.checkpoint_every and (it + 1) % args.checkpoint_every == 0:
             save_checkpoint(state_path, {"iter": np.int64(it + 1), "ts": ts})
-        if (it + 1) % args.log_every and it + 1 < args.iters:
+        if rank or (it + 1) % args.log_every and it + 1 < args.iters:
             continue
         # ONE host fetch of the stacked stats (it also waits for the device).
         keys = sorted(stats)
@@ -226,9 +247,11 @@ def main(argv=None):
                   file=log_file, flush=True)
     if log_file:
         log_file.close()
-    if args.checkpoint:
+    if args.checkpoint and rank == 0:
         save_checkpoint(args.checkpoint, ts.params)
         print(f"saved params to {args.checkpoint}")
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -16,6 +16,14 @@ Keys are raw key words in int64 tensors ``[..., 2]`` with values in
 ``[0, 2**32)``: PyTorch has no shifts for ``uint32`` on the CPU, so all
 arithmetic runs in int64 and is masked back to 32 bits. Every function
 is batched: a key tensor ``[B, 2]`` gives ``[B, *shape]`` draws.
+
+Because each element hashes its own flat index, any contiguous run of a
+draw can be made alone: ``offset`` (in ``split``, ``bits``, ``uniform``,
+``gumbel`` and ``categorical``) starts the counters there, so a process
+that holds rows ``[lo, hi)`` of a global ``[B, ...]`` draw passes
+``offset = lo * (elements per row)`` and gets exactly its rows of the
+global draw, as the partitionable threefry gives each shard of a global
+``jax.random`` array.
 """
 
 from __future__ import annotations
@@ -52,23 +60,24 @@ def key(seed: int, device="cpu") -> torch.Tensor:
     return torch.tensor([0, int(seed) & _M32], dtype=torch.int64, device=device)
 
 
-def _hash_counters(keys, shape):
-    """threefry of the flat index of every element of ``shape`` under
-    each key: two int64 tensors ``[*batch, *shape]``."""
+def _hash_counters(keys, shape, offset: int = 0):
+    """threefry of the flat index (plus ``offset``) of every element of
+    ``shape`` under each key: two int64 tensors ``[*batch, *shape]``."""
     batch = keys.shape[:-1]
     numel = 1
     for d in shape:
         numel *= int(d)
-    idx = torch.arange(numel, dtype=torch.int64, device=keys.device).reshape(shape)
+    idx = torch.arange(offset, offset + numel, dtype=torch.int64, device=keys.device).reshape(shape)
     view = tuple(batch) + (1,) * len(shape)
     k0 = keys[..., 0].reshape(view)
     k1 = keys[..., 1].reshape(view)
     return threefry2x32(k0, k1, idx >> 32, idx & _M32)
 
 
-def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``[..., 2]`` -> ``[..., num, 2]``."""
-    b0, b1 = _hash_counters(keys, (num,))
+def split(keys: torch.Tensor, num: int = 2, offset: int = 0) -> torch.Tensor:
+    """``jax.random.split``: ``[..., 2]`` -> ``[..., num, 2]``; keys
+    ``[offset, offset + num)`` of a larger split."""
+    b0, b1 = _hash_counters(keys, (num,), offset)
     return torch.stack([b0, b1], dim=-1)
 
 
@@ -80,20 +89,21 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
-def bits(keys: torch.Tensor, shape) -> torch.Tensor:
+def bits(keys: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     """``jax.random.bits`` (u32) as int64 values in ``[0, 2**32)``."""
-    b0, b1 = _hash_counters(keys, tuple(shape))
+    b0, b1 = _hash_counters(keys, tuple(shape), offset)
     return b0 ^ b1
 
 
-def uniform(keys: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+def uniform(keys: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0,
+            offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform`` in [minval, maxval) as float32: the top 23
     bits become the mantissa of a float f in [1, 2); the draw is
     ``max(minval, (f - 1) * (maxval - minval) + minval)``, exactly ``f - 1``
     for the default range. XLA contracts that product and sum into one
     fused multiply-add (one rounding); the sum is taken here in float64,
     where it is exact for these operands, and rounded to float32 once."""
-    mant = (bits(keys, shape) >> 9) | 0x3F800000
+    mant = (bits(keys, shape, offset) >> 9) | 0x3F800000
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
     if minval == 0.0 and maxval == 1.0:
         return floats
@@ -103,18 +113,19 @@ def uniform(keys: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0)
     return torch.maximum(lo, fma)
 
 
-def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:
+def gumbel(keys: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     """``jax.random.gumbel`` (mode 'low') in float32:
     ``-log(-log(uniform(tiny, 1)))``."""
-    u = uniform(keys, shape, minval=torch.finfo(torch.float32).tiny, maxval=1.0)
+    u = uniform(keys, shape, minval=torch.finfo(torch.float32).tiny, maxval=1.0, offset=offset)
     return -torch.log(-torch.log(u))
 
 
-def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical(keys: torch.Tensor, logits: torch.Tensor, offset: int = 0) -> torch.Tensor:
     """``jax.random.categorical`` over the last axis of f32 ``logits``
     with one key for the whole array: ``argmax(logits + gumbel)`` (first
-    index on ties), as int64."""
-    return (gumbel(keys, tuple(logits.shape)) + logits).argmax(dim=-1)
+    index on ties), as int64. With ``offset`` the noise is that of the
+    elements of a larger draw that start there."""
+    return (gumbel(keys, tuple(logits.shape), offset) + logits).argmax(dim=-1)
 
 
 def bernoulli(keys: torch.Tensor, p: float, shape) -> torch.Tensor:

@@ -7,6 +7,9 @@ are OIHW on NCHW (``interop.params_from_flax`` converts once), and the
 conv output is flattened in NHWC order so that ``trunk`` takes the flax
 kernel's row order. Rounding follows flax: each conv and ``trunk`` in
 ``dtype`` with the bias added in ``dtype``, the heads in f32.
+
+:func:`partition_params` is the tensor-parallel layout of every model
+of the package, as the JAX function of that name.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch import nn
 
 from ..grid_config import NUM_ACTIONS
 from .embed_actor_critic import dense, lecun_normal_, linear
+from .tensor_parallel import ModelAxis, copy_to_model, gather_from_model, partition, unpartition
 
 
 class ActorCritic(nn.Module):
@@ -35,6 +39,7 @@ class ActorCritic(nn.Module):
         self.trunk = linear(window * window * channels, hidden, generator=generator)
         self.policy = linear(hidden, NUM_ACTIONS, generator=generator)
         self.value = linear(hidden, 1, generator=generator)
+        self.model_axis = None  # set by models.tensor_parallel.shard_module
 
     def _conv(self, x, conv):
         y = F.conv2d(x, conv.weight.to(self.dtype), padding=1)
@@ -45,7 +50,8 @@ class ActorCritic(nn.Module):
         x = obs.reshape(-1, *obs.shape[-3:]).to(self.dtype)
         x = self._conv(self._conv(x, self.conv1), self.conv2)
         x = x.permute(0, 2, 3, 1).reshape(*lead, -1)  # NHWC flatten, as flax
-        x = F.relu(dense(x, self.trunk, self.dtype))
+        x = F.relu(dense(copy_to_model(x, self.model_axis), self.trunk, self.dtype))
+        x = gather_from_model(x, self.model_axis)
         logits = dense(x, self.policy, torch.float32)
         value = dense(x, self.value, torch.float32)
         return logits, value[..., 0]
@@ -57,3 +63,22 @@ def init_params(generator: torch.Generator, window: int, hidden: int = 512,
     drawn from ``generator`` (LeCun-normal kernels, zero biases)."""
     model = ActorCritic(window, hidden, channels, dtype, generator=generator)
     return model, model.state_dict()
+
+
+def partition_params(params: dict, mesh) -> dict:
+    """Tensor-parallel layout: ``{name: tensor}`` (a module's parameters
+    or state dict) -> this rank's shard of each. The trunk Dense and all
+    six GRU gate weights and biases are split over the ``'model'`` axis
+    of ``mesh`` column-wise in flax's terms (each rank owns hidden /
+    model output features: dim 0 of the torch ``[out, in]`` weight);
+    everything else is replicated. The model that runs them is made
+    tensor-parallel by ``models.tensor_parallel.shard_module`` (the
+    learner's ``init_*`` and ``make_*`` do it when given the mesh)."""
+    return partition(params, ModelAxis(mesh))
+
+
+def gather_params(params: dict, mesh) -> dict:
+    """Inverse of :func:`partition_params`: every rank gets the whole
+    tensors (to save or compare them). A collective call over the
+    mesh's ``'model'`` axis."""
+    return unpartition(params, ModelAxis(mesh))

@@ -49,6 +49,7 @@ from torch import nn
 from ..core.obs import packed_observation
 from ..grid_config import NUM_ACTIONS
 from ..ops.windows import extract_windows, pairwise_agent_windows, target_onehot
+from .tensor_parallel import copy_to_model, gather_from_model
 
 
 def dense(x, layer: nn.Linear, dtype) -> torch.Tensor:
@@ -135,11 +136,14 @@ class EmbedActorCritic(nn.Module):
         # Logits and value share one output GEMM: cols 0..4 are logits,
         # col 5 the value.
         self.head_out = linear(hidden, NUM_ACTIONS + 1, generator=generator)
+        # Set by models.tensor_parallel.shard_module: the trunk then holds
+        # this rank's slice of the hidden features.
+        self.model_axis = None
 
     def _head(self, e):
-        x = F.relu(e)
+        x = copy_to_model(F.relu(e), self.model_axis)
         x = F.relu(dense(x, self.trunk, self.dtype))
-        o = dense(x, self.head_out, torch.float32)
+        o = dense(gather_from_model(x, self.model_axis), self.head_out, torch.float32)
         return o[..., :NUM_ACTIONS], o[..., NUM_ACTIONS]
 
     def embed_state_windows(self, grids, agents_xy, targets_xy, active) -> torch.Tensor:

@@ -17,6 +17,12 @@ The cell is written out in ``flax.linen.GRUCell``'s order, each Dense in
 
 Only ``ir``, ``iz``, ``in`` and ``hn`` have biases, as in flax. σ is
 jax's own form (:func:`_sigmoid`).
+
+Tensor-parallel (``models.tensor_parallel.shard_module``): each rank
+holds its slice of the six gates' output features, and so its slice of
+h. The h-side products read the whole h, gathered over ``'model'``;
+``z · h`` reads the rank's own slice; the carried h stays sharded, and
+it is gathered once more for the replicated ``head_out``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from torch import nn
 from ..grid_config import NUM_ACTIONS
 from ..core.obs import packed_observation
 from .embed_actor_critic import dense, embed_obs, linear
+from .tensor_parallel import copy_to_model, gather_from_model
 
 GRU_BIASED = ("ir", "iz", "in", "hn")
 
@@ -60,23 +67,28 @@ class RecurrentEmbedActorCritic(nn.Module):
                     nn.init.orthogonal_(gru[name].weight, generator=generator)
         self.gru = nn.ModuleDict(gru)
         self.head_out = linear(hidden, NUM_ACTIONS + 1, generator=generator)
+        self.model_axis = None  # set by models.tensor_parallel.shard_module
 
     def initial_carry(self, batch_shape, device=None) -> torch.Tensor:
-        """Zero hidden state: dtype[*batch_shape, hidden]."""
+        """Zero hidden state: dtype[*batch_shape, hidden], or this rank's
+        slice of hidden when the model is tensor-parallel."""
         device = self.embed_kernel.device if device is None else device
-        return torch.zeros(*batch_shape, self.hidden, dtype=self.dtype, device=device)
+        width = self.gru["hr"].weight.shape[0]
+        return torch.zeros(*batch_shape, width, dtype=self.dtype, device=device)
 
     def _cell(self, h, x):
-        g, dt = self.gru, self.dtype
+        g, dt, axis = self.gru, self.dtype, self.model_axis
         h = h.to(dt)
-        r = _sigmoid(dense(x, g["ir"], dt) + dense(h, g["hr"], dt))
-        z = _sigmoid(dense(x, g["iz"], dt) + dense(h, g["hz"], dt))
-        n = torch.tanh(dense(x, g["in"], dt) + r * dense(h, g["hn"], dt))
+        x = copy_to_model(x, axis)
+        h_all = h if axis is None else copy_to_model(gather_from_model(h, axis), axis)
+        r = _sigmoid(dense(x, g["ir"], dt) + dense(h_all, g["hr"], dt))
+        z = _sigmoid(dense(x, g["iz"], dt) + dense(h_all, g["hz"], dt))
+        n = torch.tanh(dense(x, g["in"], dt) + r * dense(h_all, g["hn"], dt))
         return (1.0 - z) * n + z * h
 
     def _finish(self, h, e):
         new_h = self._cell(h, F.relu(e))
-        o = dense(new_h, self.head_out, torch.float32)
+        o = dense(gather_from_model(new_h, self.model_axis), self.head_out, torch.float32)
         return new_h, o[..., :NUM_ACTIONS], o[..., NUM_ACTIONS]
 
     def step_from_state(self, grids, agents_xy, targets_xy, active, h):

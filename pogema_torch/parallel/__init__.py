@@ -1,4 +1,5 @@
-"""Batched evaluation and PPO training of policies on one device."""
+"""Batched evaluation and PPO training of policies, on one device or
+over a mesh of processes (``mesh``)."""
 
 from .evaluator import make_policy_evaluator
 from .learner import (
@@ -14,6 +15,15 @@ from .learner import (
     make_recurrent_train_step,
     make_train_step,
 )
+from .mesh import (
+    batch_sharding,
+    gather_batch,
+    global_batch_from_host,
+    initialize_distributed,
+    make_mesh,
+    replicated,
+    shard_batch,
+)
 from .optim import Optimizer
 from .rollout import (
     make_recurrent_rollout_fn,
@@ -22,6 +32,13 @@ from .rollout import (
 )
 
 __all__ = [
+    "make_mesh",
+    "shard_batch",
+    "initialize_distributed",
+    "global_batch_from_host",
+    "gather_batch",
+    "batch_sharding",
+    "replicated",
     "make_rollout_fn",
     "make_state_rollout_fn",
     "make_recurrent_rollout_fn",

@@ -33,6 +33,26 @@ Four flavours, as there:
 * :func:`make_recurrent_train_step`: minibatches slice the env axis and
   each loss replays the whole sequence from the stored hidden state (one
   launch of the observation kernel per replayed step).
+
+Over a mesh (``parallel.mesh``; every ``init_*`` and ``make_*`` takes
+``mesh``, and ``None`` runs the code above unchanged) each rank holds the
+envs of its data coordinate, and the update computes what the JAX
+package's global program computes, not a per-rank average:
+
+* the epoch's partition is drawn over the GLOBAL rows with the same
+  keys, and each rank takes, in global row order, the rows of each
+  minibatch that it holds (a share that may differ from minibatch to
+  minibatch, or be empty; an empty rank still joins every collective);
+* the advantages are normalized by the global mean and population
+  standard deviation, and each loss mean is the local sum over the
+  global count, so the sum of the ranks' gradients (an all-reduce over
+  'data') is the gradient of the global loss;
+* the clipping norm sums the squares of the 'model'-sharded leaves over
+  'model' and counts the replicated ones once (``optim.global_norm``);
+* the statistics are global sums over global counts.
+
+Every rank draws the same keys; the rollout's actions are the rank's
+rows of the global draw (``core.random``'s ``offset``).
 """
 
 from __future__ import annotations
@@ -44,7 +64,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import random as jr
-from .optim import Optimizer
+from .mesh import all_reduce_sum, axis_size, data_rows, shard_batch
+from .optim import Optimizer, global_norm
 from .rollout import (
     make_recurrent_rollout_fn,
     make_rollout_fn,
@@ -119,11 +140,25 @@ def load_params(model, params: dict) -> None:
     if set(own) != set(params):
         raise KeyError(f"parameter names differ: {sorted(set(own) ^ set(params))}")
     for k, p in own.items():
+        if p.shape != params[k].shape:
+            raise ValueError(f"parameter {k}: {tuple(params[k].shape)} for a module that holds "
+                             f"{tuple(p.shape)} (over a mesh with a 'model' axis, pass this "
+                             "rank's shards: models.partition_params)")
         p.copy_(params[k])
 
 
-def _own_params(core, model, params) -> dict:
+def _place(core, model, mesh) -> None:
+    """Move the module to the core's device and, over a mesh, make it
+    tensor-parallel (``models.tensor_parallel.shard_module``)."""
     model.to(core.device)
+    if mesh is not None:
+        from ..models.tensor_parallel import shard_module
+
+        shard_module(model, mesh)
+
+
+def _own_params(core, model, params, mesh=None) -> dict:
+    _place(core, model, mesh)
     if params is None:
         return params_of(model)
     return {k: torch.as_tensor(v).detach().to(core.device, torch.float32).clone()
@@ -134,41 +169,56 @@ def _optimizer(config: PPOConfig) -> Optimizer:
     return Optimizer(lr=config.lr, max_norm=config.max_grad_norm)
 
 
-def _init_state(core, model, params, config: PPOConfig, key, with_obs: bool):
-    """Shared by both feedforward flavours so that their optimizers
-    cannot drift apart."""
-    tx = _optimizer(config)
-    params = _own_params(core, model, params)
+def _reset(core, key, with_obs: bool, mesh):
+    """(key, env_state, obs) of a new train state. Over a mesh each rank
+    resets the GLOBAL batch (deterministic, so every rank draws the same)
+    and keeps its rows."""
     key = torch.as_tensor(key, device=core.device).to(torch.int64)
     key, k_reset = jr.split(key)
     env_state, obs = core.reset(k_reset, with_obs=with_obs)
+    if mesh is not None:
+        env_state, obs = shard_batch((env_state, obs), mesh)
+    return key, env_state, obs
+
+
+def _init_state(core, model, params, config: PPOConfig, key, with_obs: bool, mesh):
+    """Shared by both feedforward flavours so that their optimizers
+    cannot drift apart."""
+    tx = _optimizer(config)
+    params = _own_params(core, model, params, mesh)
+    key, env_state, obs = _reset(core, key, with_obs, mesh)
     ts = TrainState(params=params, opt_state=tx.init(params), env_state=env_state,
                     initial_env_state=env_state, obs=obs, key=key)
     return ts, tx
 
 
-def init_train_state(core, model, params, config: PPOConfig, key) -> tuple:
+def init_train_state(core, model, params, config: PPOConfig, key, mesh=None) -> tuple:
     """(TrainState, Optimizer) of the observation-based path. ``params``:
     a ``{name: tensor}`` dict, or None for the module's current ones;
     ``key``: int64[2] key words (``core.make_key(seed)``). The module is
-    moved to the core's device."""
-    return _init_state(core, model, params, config, key, with_obs=True)
+    moved to the core's device.
+
+    With ``mesh`` (``parallel.make_mesh``) the core describes the GLOBAL
+    batch, the state holds this rank's envs, the module is made
+    tensor-parallel over the mesh's 'model' axis, and ``params`` are
+    this rank's shards (``models.partition_params``) or None."""
+    return _init_state(core, model, params, config, key, True, mesh)
 
 
-def init_fused_train_state(core, model, params, config: PPOConfig, key) -> tuple:
+def init_fused_train_state(core, model, params, config: PPOConfig, key, mesh=None) -> tuple:
     """As :func:`init_train_state` for the fused paths: no observation
     tensor is ever held."""
-    return _init_state(core, model, params, config, key, with_obs=False)
+    return _init_state(core, model, params, config, key, False, mesh)
 
 
-def init_recurrent_train_state(core, model, params, config: PPOConfig, key) -> tuple:
-    """(RecurrentTrainState, Optimizer) of the GRU family."""
+def init_recurrent_train_state(core, model, params, config: PPOConfig, key, mesh=None) -> tuple:
+    """(RecurrentTrainState, Optimizer) of the GRU family; ``mesh`` as in
+    :func:`init_train_state` (the hidden state is then this rank's envs
+    and, with tensor parallelism, its slice of the hidden features)."""
     tx = _optimizer(config)
-    params = _own_params(core, model, params)
-    key = torch.as_tensor(key, device=core.device).to(torch.int64)
-    key, k_reset = jr.split(key)
-    env_state, _ = core.reset(k_reset, with_obs=False)
-    h = model.initial_carry((core.num_envs, core.cfg.num_agents), device=core.device)
+    params = _own_params(core, model, params, mesh)
+    key, env_state, _ = _reset(core, key, False, mesh)
+    h = model.initial_carry(tuple(env_state.active.shape), device=core.device)
     ts = RecurrentTrainState(params=params, opt_state=tx.init(params), env_state=env_state,
                              initial_env_state=env_state, h=h, key=key)
     return ts, tx
@@ -203,6 +253,91 @@ def _epoch_mix(key, n: int, minibatches: int) -> Callable:
         return x.transpose(1, 2).reshape((mb, minibatches) + x.shape[3:])
 
     return mix
+
+
+class _DataAxis:
+    """The mesh as the update sees it: this rank's envs ``[lo, hi)`` of
+    the global batch of ``num_envs``, sums over the 'data' ranks, and the
+    'model' group of the clipping norm (None without tensor
+    parallelism)."""
+
+    def __init__(self, mesh, num_envs: int):
+        self.group = mesh.get_group("data")
+        self.size = axis_size(mesh, "data")
+        self.num_envs = num_envs
+        self.lo, self.hi = data_rows(mesh, num_envs)
+        self.model_group = mesh.get_group("model") if axis_size(mesh, "model") > 1 else None
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(x, self.group)
+
+    def minibatch_rows(self, key, n: int, minibatches: int, inner) -> list:
+        """This rank's rows of each minibatch of the epoch that ``key``
+        mixes, as indices into its local dataset, in global row order.
+        Global row ``r`` of ``n`` is ``(o, b, i)`` of the axes (outer,
+        num_envs, ``inner``); the rank holds it when ``lo <= b < hi``, at
+        local row ``(o, b - lo, i)``. ``inner=None``: the mixed axis holds
+        no env (every rank holds every row)."""
+        perm = _epoch_mix(key, n, minibatches)(torch.arange(n, device=key.device))
+        out = []
+        for i in range(minibatches):
+            rows = perm[:, i]
+            if inner is not None:
+                b, span = self.num_envs, self.num_envs * inner
+                env = (rows // inner) % b
+                rows = rows[(env >= self.lo) & (env < self.hi)]
+                rows = (rows // span) * ((self.hi - self.lo) * inner) + rows % span - self.lo * inner
+            out.append(rows)
+        return out
+
+    def normalize(self, advantages):
+        """((a - mean) / (std + 1e-8) over the global minibatch, the
+        global element count), with the population standard deviation."""
+        f64 = torch.float64
+        s = self.sum(torch.stack([advantages.sum().to(f64),
+                                  torch.tensor(advantages.numel(), dtype=f64,
+                                               device=advantages.device)]))
+        count = s[1]
+        mean = (s[0] / count).float()
+        dev2 = self.sum(((advantages - mean) ** 2).sum().to(f64))
+        std = torch.sqrt(dev2 / count).float()
+        return (advantages - mean) / (std + 1e-8), count.float()
+
+    def sum_grads(self, grads: dict) -> dict:
+        """The gradients summed over 'data' (one all-reduce of all of them)."""
+        flat = self.sum(torch.cat([g.reshape(-1) for g in grads.values()]))
+        out, at = {}, 0
+        for k, g in grads.items():
+            out[k] = flat[at:at + g.numel()].view_as(g)
+            at += g.numel()
+        return out
+
+    def norm(self, grads: dict):
+        """The clipping norm of the whole gradient; None (the optimizer's
+        own) without tensor parallelism."""
+        if self.model_group is None:
+            return None
+        from ..models.tensor_parallel import is_sharded
+
+        return global_norm(grads, {k for k in grads if is_sharded(k)}, self.model_group)
+
+
+def _data_axis(core, model, mesh):
+    """The data axis of a train step (None without a mesh), after
+    :func:`_place`."""
+    _place(core, model, mesh)
+    return None if mesh is None else _DataAxis(mesh, core.num_envs)
+
+
+def _offset(axis) -> int:
+    """The rank's first env in the global batch."""
+    return 0 if axis is None else axis.lo
+
+
+def _global_rows(n: int, axis) -> int:
+    """The global row count of a dataset whose mixed axis splits over
+    'data' evenly (``n`` rows here)."""
+    return n if axis is None else n * axis.size
 
 
 def _check_minibatch_divisibility(n, minibatches, what):
@@ -273,7 +408,8 @@ def _ppo_element_terms(config: PPOConfig, logits, values, actions, old_log_probs
 
 def _normalize_adv(advantages):
     """(a - mean) / (std + 1e-8) with the population standard deviation,
-    as ``jnp.std`` (``torch.std`` defaults to the sample one)."""
+    as ``jnp.std`` (``torch.std`` defaults to the sample one). Over a
+    mesh: ``_DataAxis.normalize``."""
     return (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)
 
 
@@ -283,17 +419,27 @@ def _ppo_total(config: PPOConfig, pg_loss, v_loss, entropy):
 
 
 def _ppo_loss_terms(config: PPOConfig, logits, values, actions, old_log_probs, advantages,
-                    targets):
+                    targets, axis=None):
     """Clipped-surrogate PPO loss from policy outputs: (total, (pg_loss,
-    v_loss, entropy)). Shared by every flavour."""
-    adv = _normalize_adv(advantages)
+    v_loss, entropy)). Shared by every flavour. Over a mesh (``axis``)
+    each term is this rank's sum over the global count: the ranks' losses
+    add up to the global one."""
+    if axis is None:
+        adv = _normalize_adv(advantages)
+    else:
+        adv, count = axis.normalize(advantages)
     pg_el, v_el, ent_el = _ppo_element_terms(config, logits, values, actions, old_log_probs,
                                              adv, targets)
-    return _ppo_total(config, -pg_el.mean(), 0.5 * v_el.mean(), ent_el.mean())
+    if axis is None:
+        return _ppo_total(config, -pg_el.mean(), 0.5 * v_el.mean(), ent_el.mean())
+    return _ppo_total(config, -pg_el.sum() / count, 0.5 * v_el.sum() / count,
+                      ent_el.sum() / count)
 
 
-def _train_stats(stats, traj) -> dict:
+def _train_stats(stats, traj, axis=None) -> dict:
     """stats: f32[E, M, 4] (loss, pg, v, entropy per minibatch)."""
+    if axis is not None:
+        return _global_train_stats(stats, traj, axis)
     loss, pg, vl, ent = stats.mean(dim=(0, 1))
     out = {"loss": loss, "pg_loss": pg, "v_loss": vl, "entropy": ent,
            "reward_per_step": traj.rewards.mean()}
@@ -307,28 +453,64 @@ def _train_stats(stats, traj) -> dict:
     return out
 
 
+def _global_train_stats(stats, traj, axis) -> dict:
+    """:func:`_train_stats` over a mesh: one all-reduce over 'data' of the
+    minibatch losses (each rank's share of the global ones), of the
+    rewards' sum and of the ended episodes' metric sums and count."""
+    done_f = traj.env_dones.to(torch.float32)
+    names = list(traj.metrics)
+    sums = torch.stack([traj.rewards.sum(), done_f.sum()]
+                       + [(traj.metrics[k] * done_f).sum() for k in names])
+    total = axis.sum(torch.cat([stats.reshape(-1), sums]))
+    k = stats.numel()
+    loss, pg, vl, ent = total[:k].reshape(stats.shape).mean(dim=(0, 1))
+    reward_sum, finished = total[k], total[k + 1]
+    out = {"loss": loss, "pg_loss": pg, "v_loss": vl, "entropy": ent,
+           "reward_per_step": reward_sum / (traj.rewards.numel() * axis.size)}
+    denom = finished.clamp(min=1.0)
+    for j, name in enumerate(names):
+        out[f"episode_{name}"] = total[k + 2 + j] / denom
+    out["episodes_finished"] = finished
+    return out
+
+
 def _update(model, config: PPOConfig, tx: Optimizer, opt_state, key, n, dataset, loss_fn,
-            grad_hook=None):
+            grad_hook=None, axis=None, inner=None):
     """E epochs x M minibatches on the module's own parameters (already
     loaded). ``dataset``: tensors with the mixed axis (length n) first;
     ``loss_fn(batch)`` gets the list of their minibatch slices ([n // M,
     ...], views: make contiguous what a kernel reads). Returns
-    (params, opt_state, key, stats f32[E, M, 4])."""
+    (params, opt_state, key, stats f32[E, M, 4]).
+
+    Over a mesh (``axis``), ``n`` is the global row count, the dataset
+    holds this rank's rows (laid out as ``_DataAxis.minibatch_rows``
+    reads ``inner``), a minibatch is this rank's share of the global one
+    (copies, in global row order), and the gradients are summed over
+    'data' before ``grad_hook`` sees them."""
     named = dict(model.named_parameters())
     names, tensors = list(named), list(named.values())
     stats = []
     for epoch in range(config.epochs):
         key, k_mix = jr.split(key)
-        mix = _epoch_mix(k_mix, n, config.minibatches)
-        shuffled = [mix(x) for x in dataset]
+        if axis is None:
+            mix = _epoch_mix(k_mix, n, config.minibatches)
+            shuffled = [mix(x) for x in dataset]
+        else:
+            rows = axis.minibatch_rows(k_mix, n, config.minibatches, inner)
         for i in range(config.minibatches):
-            loss, aux = loss_fn([x[:, i] for x in shuffled])
+            if axis is None:
+                loss, aux = loss_fn([x[:, i] for x in shuffled])
+            else:
+                loss, aux = loss_fn([x.index_select(0, rows[i]) for x in dataset])
             grads = torch.autograd.grad(loss, tensors, allow_unused=True)
             grads = {k: torch.zeros_like(p) if g is None else g
                      for k, p, g in zip(names, tensors, grads)}
+            if axis is not None:
+                grads = axis.sum_grads(grads)
             if grad_hook is not None:
                 grad_hook(epoch, i, loss.detach(), grads)
-            updates, opt_state = tx.update(grads, opt_state)
+            updates, opt_state = tx.update(grads, opt_state,
+                                           None if axis is None else axis.norm(grads))
             with torch.no_grad():
                 for k, p in named.items():
                     p.add_(updates[k])
@@ -345,23 +527,24 @@ def _noop(_name):
 
 
 def make_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_hook=None,
-                    phase_hook=None):
+                    phase_hook=None, mesh=None):
     """Returns ``train_step(TrainState) -> (TrainState, stats)`` of the
     observation-based path: ``model(obs)`` over rows of single agents.
 
     ``grad_hook(epoch, minibatch, loss, grads)`` is called after every
     backward pass and ``phase_hook(name)`` at the end of 'rollout', 'gae'
     and 'update' (tests and timing; both optional, on every flavour).
-    The module is moved to the core's device."""
-    model.to(core.device)
-    rollout = make_rollout_fn(core, model, config.rollout_steps)
+    The module is moved to the core's device. ``mesh``: the state's mesh
+    (see :func:`init_train_state`), on every flavour."""
+    axis = _data_axis(core, model, mesh)
+    rollout = make_rollout_fn(core, model, config.rollout_steps, env_offset=_offset(axis))
     phase = phase_hook or _noop
 
     def loss_fn(batch):
         obs, actions, old_log_probs, advantages, targets = batch
         logits, values = model(obs)
         return _ppo_loss_terms(config, logits, values, actions, old_log_probs, advantages,
-                               targets)
+                               targets, axis)
 
     def train_step(ts: TrainState):
         load_params(model, ts.params)
@@ -378,14 +561,15 @@ def make_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_hook=Non
 
         dataset = [flat(traj.obs), flat(traj.actions), flat(traj.log_probs), flat(advantages),
                    flat(targets)]
-        n = dataset[1].shape[0]
+        n = _global_rows(dataset[1].shape[0], axis)
         _check_minibatch_divisibility(n, config.minibatches, "rollout rows T*B*N")
         params, opt_state, key, stats = _update(model, config, tx, ts.opt_state, key, n,
-                                                dataset, loss_fn, grad_hook)
+                                                dataset, loss_fn, grad_hook, axis,
+                                                inner=core.cfg.num_agents)
         phase("update")
         new_ts = ts.replace(params=params, opt_state=opt_state, env_state=env_state, obs=obs,
                             key=key)
-        return new_ts, _train_stats(stats, traj)
+        return new_ts, _train_stats(stats, traj, axis)
 
     return train_step
 
@@ -394,7 +578,7 @@ def make_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_hook=Non
 
 
 def make_fused_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_hook=None,
-                          phase_hook=None):
+                          phase_hook=None, mesh=None):
     """PPO train step on the fused, observation-free path: the rollout
     stores compact state instead of observations and the update rebuilds
     the policy input from state and the per-env static grids.
@@ -413,10 +597,11 @@ def make_fused_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_ho
     * 'auto': 'pre' when it is allowed and ``S*S <= 8*w*w`` and the bf16
       grid embedding stays under 6 GB, else 'windows'. The thresholds are
       the JAX package's, kept so that both packages pick the same path
-      for the same shapes; they were not measured on this device.
+      for the same shapes; they were not measured on this device. Over a
+      mesh they read the global ``num_envs``, so every rank picks the
+      same path.
     """
     _check_static_maps(core, config)
-    model.to(core.device)
     time_mb = config.rollout_steps % config.minibatches == 0
     if config.obstacle_path == "pre":
         if not time_mb:
@@ -440,9 +625,11 @@ def make_fused_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_ho
             "(expected 'auto', 'pre' or 'windows')"
         )
     if use_pre:
-        return _make_fused_pre_train_step(core, model, config, tx, grad_hook, phase_hook)
+        return _make_fused_pre_train_step(core, model, config, tx, grad_hook, phase_hook, mesh)
 
-    rollout = make_state_rollout_fn(core, model.from_state, config.rollout_steps)
+    axis = _data_axis(core, model, mesh)
+    rollout = make_state_rollout_fn(core, model.from_state, config.rollout_steps,
+                                    env_offset=_offset(axis))
     phase = phase_hook or _noop
 
     def train_step(ts: TrainState):
@@ -470,6 +657,7 @@ def make_fused_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_ho
         dataset = [flat(traj.agents_xy), flat(traj.targets_xy), flat(traj.active),
                    flat(traj.actions), flat(traj.log_probs), flat(advantages), flat(targets),
                    env_ids]
+        n = _global_rows(n, axis)
         _check_minibatch_divisibility(n, config.minibatches, "rollout rows T*B")
 
         def loss_fn(batch):
@@ -479,22 +667,24 @@ def make_fused_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_ho
             logits, values = model.from_state(grids[ids], axy.contiguous(), txy.contiguous(),
                                               active)
             return _ppo_loss_terms(config, logits, values, actions, old_log_probs, advantages,
-                                   targets)
+                                   targets, axis)
 
         params, opt_state, key, stats = _update(model, config, tx, ts.opt_state, key, n,
-                                                dataset, loss_fn, grad_hook)
+                                                dataset, loss_fn, grad_hook, axis, inner=1)
         phase("update")
         new_ts = ts.replace(params=params, opt_state=opt_state, env_state=env_state, key=key)
-        return new_ts, _train_stats(stats, traj)
+        return new_ts, _train_stats(stats, traj, axis)
 
     return train_step
 
 
 def _make_fused_pre_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_hook,
-                               phase_hook):
-    """The 'pre' flavour of :func:`make_fused_train_step` (see there)."""
+                               phase_hook, mesh):
+    """The 'pre' flavour of :func:`make_fused_train_step` (see there).
+    Over a mesh every rank holds every time row, for its envs."""
+    axis = _data_axis(core, model, mesh)
     rollout = make_state_rollout_fn(core, model.from_state_pre, config.rollout_steps,
-                                    make_ctx=model.grid_embed)
+                                    make_ctx=model.grid_embed, env_offset=_offset(axis))
     phase = phase_hook or _noop
 
     def train_step(ts: TrainState):
@@ -522,7 +712,7 @@ def _make_fused_pre_train_step(core, model, config: PPOConfig, tx: Optimizer, gr
             e_grid = model.grid_embed(grids)
             logits, values = model.from_state_pre(e_grid, axy, txy, active)
             return _ppo_loss_terms(config, logits, values, actions, old_log_probs, advantages,
-                                   targets)
+                                   targets, axis)
 
         def loss_fn_scan_t(batch):
             """The same loss with the policy evaluated one TIME step at a
@@ -532,7 +722,10 @@ def _make_fused_pre_train_step(core, model, config: PPOConfig, tx: Optimizer, gr
             Identical math up to the order of the reductions."""
             axy, txy, active, actions, old_log_probs, advantages, targets = batch
             e_grid = model.grid_embed(grids)
-            adv_n = _normalize_adv(advantages)  # over the whole minibatch
+            if axis is None:  # over the whole minibatch
+                adv_n, count = _normalize_adv(advantages), float(actions.numel())
+            else:
+                adv_n, count = axis.normalize(advantages)
 
             def one_t(e_grid, axy_t, txy_t, act_t, actions_t, old_t, advn_t, tgt_t):
                 logits, values = model.from_state_pre(e_grid, axy_t, txy_t, act_t)
@@ -545,7 +738,6 @@ def _make_fused_pre_train_step(core, model, config: PPOConfig, tx: Optimizer, gr
                 sums = sums + checkpoint(one_t, e_grid, axy[t], txy[t], active[t], actions[t],
                                          old_log_probs[t], adv_n[t], targets[t],
                                          use_reentrant=False)
-            count = float(actions.numel())
             return _ppo_total(config, -sums[0] / count, 0.5 * sums[1] / count, sums[2] / count)
 
         # The dataset stays [T, B, ...]: minibatches are interleaved
@@ -556,10 +748,10 @@ def _make_fused_pre_train_step(core, model, config: PPOConfig, tx: Optimizer, gr
                    advantages, targets]
         params, opt_state, key, stats = _update(
             model, config, tx, ts.opt_state, key, t_steps, dataset,
-            loss_fn_scan_t if config.scan_minibatch_time else loss_fn, grad_hook)
+            loss_fn_scan_t if config.scan_minibatch_time else loss_fn, grad_hook, axis)
         phase("update")
         new_ts = ts.replace(params=params, opt_state=opt_state, env_state=env_state, key=key)
-        return new_ts, _train_stats(stats, traj)
+        return new_ts, _train_stats(stats, traj, axis)
 
     return train_step
 
@@ -578,20 +770,21 @@ def _train_many(step, steps: int):
     return train_many
 
 
-def make_fused_train_many(core, model, config: PPOConfig, tx: Optimizer, steps: int):
+def make_fused_train_many(core, model, config: PPOConfig, tx: Optimizer, steps: int,
+                          mesh=None):
     """``steps`` fused train steps in one call: a plain loop (the JAX
     package scans them into one program to save host dispatches). The
     state after it is bit-identical to ``steps`` sequential calls; the
     stats are averaged over the steps and ``episodes_finished`` is
     summed. Returns ``train_many(ts) -> (ts, stats)``."""
-    return _train_many(make_fused_train_step(core, model, config, tx), steps)
+    return _train_many(make_fused_train_step(core, model, config, tx, mesh=mesh), steps)
 
 
 # -- recurrent --------------------------------------------------------------
 
 
 def make_recurrent_train_step(core, model, config: PPOConfig, tx: Optimizer, grad_hook=None,
-                              phase_hook=None):
+                              phase_hook=None, mesh=None):
     """PPO for the recurrent (GRU) family.
 
     Rollout: observation-free, the hidden state carried and zeroed at
@@ -601,10 +794,11 @@ def make_recurrent_train_step(core, model, config: PPOConfig, tx: Optimizer, gra
     reproduce the hidden-state evolution the rollout saw, so at epoch 0
     the replayed log-probs equal the rollout's. Each replayed step is
     one ``step_from_state``, hence one launch of the observation kernel.
-    Needs num_envs % minibatches == 0."""
+    Needs num_envs % minibatches == 0 (the global num_envs over a mesh)."""
     _check_static_maps(core, config)
-    model.to(core.device)
-    rollout = make_recurrent_rollout_fn(core, model.step_from_state, config.rollout_steps)
+    axis = _data_axis(core, model, mesh)
+    rollout = make_recurrent_rollout_fn(core, model.step_from_state, config.rollout_steps,
+                                        env_offset=_offset(axis))
     _check_minibatch_divisibility(core.num_envs, config.minibatches,
                                   "num_envs (recurrent minibatches "
                                   "slice the env axis)")
@@ -625,7 +819,7 @@ def make_recurrent_train_step(core, model, config: PPOConfig, tx: Optimizer, gra
             logits.append(lg)
             values.append(v)
         return _ppo_loss_terms(config, torch.stack(logits), torch.stack(values), actions,
-                               old_log_probs, advantages, targets)
+                               old_log_probs, advantages, targets, axis)
 
     def train_step(ts: RecurrentTrainState):
         load_params(model, ts.params)
@@ -647,16 +841,18 @@ def make_recurrent_train_step(core, model, config: PPOConfig, tx: Optimizer, gra
             traj.agents_xy, traj.targets_xy, traj.active, traj.actions, traj.log_probs,
             advantages, targets, traj.dones)]
         params, opt_state, key, stats = _update(model, config, tx, ts.opt_state, key,
-                                                core.num_envs, dataset, loss_fn, grad_hook)
+                                                core.num_envs, dataset, loss_fn, grad_hook, axis,
+                                                inner=1)
         phase("update")
         new_ts = ts.replace(params=params, opt_state=opt_state, env_state=env_state, h=h_last,
                             key=key)
-        return new_ts, _train_stats(stats, traj)
+        return new_ts, _train_stats(stats, traj, axis)
 
     return train_step
 
 
-def make_recurrent_train_many(core, model, config: PPOConfig, tx: Optimizer, steps: int):
+def make_recurrent_train_many(core, model, config: PPOConfig, tx: Optimizer, steps: int,
+                              mesh=None):
     """``steps`` recurrent train steps in one call; the recurrent
     counterpart of :func:`make_fused_train_many`."""
-    return _train_many(make_recurrent_train_step(core, model, config, tx), steps)
+    return _train_many(make_recurrent_train_step(core, model, config, tx, mesh=mesh), steps)

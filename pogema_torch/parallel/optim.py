@@ -20,6 +20,11 @@ The state is a plain dict ``{"count": i32[], "mu": {...}, "nu": {...}}``
 so it can be saved, compared and carried across to optax's
 ``ScaleByAdamState``. Nothing here is in place: every call returns new
 tensors.
+
+Over a mesh with tensor parallelism each rank holds slices of some
+leaves: the learner then gives :meth:`Optimizer.update` the norm of the
+whole gradient (:func:`global_norm` with ``sharded`` and ``group``), and
+Adam runs unchanged on each rank's slices.
 """
 
 from __future__ import annotations
@@ -47,14 +52,26 @@ class Optimizer:
                 "mu": {k: torch.zeros_like(v) for k, v in params.items()},
                 "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
 
-    def update(self, grads: dict, state: dict):
-        """(updates, new_state): add ``updates[k]`` to parameter ``k``."""
-        clipped = clip_by_global_norm(grads, self.max_norm)
+    def update(self, grads: dict, state: dict, norm=None):
+        """(updates, new_state): add ``updates[k]`` to parameter ``k``.
+        ``norm``: the global norm of the gradient, when ``grads`` holds
+        only this rank's slices of it."""
+        clipped = clip_by_global_norm(grads, self.max_norm, norm)
         return adam_update(clipped, state, self.lr, self.b1, self.b2, self.eps)
 
 
-def global_norm(grads: dict) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares."""
+def global_norm(grads: dict, sharded=frozenset(), group=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's sum of squares. With a
+    process ``group`` (the mesh's 'model' axis), the leaves named in
+    ``sharded`` are this rank's slices: their squares are summed over the
+    group, and the replicated leaves are counted once."""
+    if group is not None:
+        from .mesh import all_reduce_sum
+
+        zero = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
+        own = sum(((g * g).sum() for k, g in grads.items() if k in sharded), zero)
+        rep = sum(((g * g).sum() for k, g in grads.items() if k not in sharded), zero)
+        return torch.sqrt(rep + all_reduce_sum(own, group))
     total = None
     for g in grads.values():
         s = (g * g).sum()
@@ -62,8 +79,8 @@ def global_norm(grads: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: dict, max_norm: float, norm=None) -> dict:
+    norm = global_norm(grads) if norm is None else norm
     keep = norm < max_norm
     return {k: torch.where(keep, g, (g / norm) * max_norm) for k, g in grads.items()}
 

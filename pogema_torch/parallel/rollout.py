@@ -14,12 +14,15 @@ the rollouts lose their leading ``params`` argument likewise.
 Every rollout splits its key once per step (``key, k_act = split(key)``),
 draws the actions with ``core.random.categorical`` (bit-equal to
 ``jax.random.categorical`` for equal logits) and advances the env with
-``core.step_autoreset``.
+``core.step_autoreset``. A rank that holds the envs ``[env_offset,
+env_offset + B)`` of a global batch (``parallel.mesh``) draws exactly its
+rows of the global draw.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -85,12 +88,13 @@ class _Recorder:
                 self.buffers[k][t] = v
 
 
-def _sample(k_act, logits):
-    actions = jr.categorical(k_act, logits).to(torch.int32)
+def _sample(k_act, logits, env_offset: int):
+    per_env = math.prod(logits.shape[1:])
+    actions = jr.categorical(k_act, logits, offset=env_offset * per_env).to(torch.int32)
     return actions, log_prob_of(logits, actions)
 
 
-def make_state_rollout_fn(core, apply_state, num_steps: int, make_ctx=None):
+def make_state_rollout_fn(core, apply_state, num_steps: int, make_ctx=None, env_offset: int = 0):
     """Observation-free rollout: the policy reads the state through
     ``apply_state(grids, agents_xy, targets_xy, active) -> (logits,
     values)`` and the env step skips observation assembly. Returns
@@ -112,7 +116,7 @@ def make_state_rollout_fn(core, apply_state, num_steps: int, make_ctx=None):
             key, k_act = jr.split(key)
             grid_in = s.obstacles if make_ctx is None else ctx
             logits, values = apply_state(grid_in, s.agents_xy, s.targets_xy, s.active)
-            actions, log_probs = _sample(k_act, logits)
+            actions, log_probs = _sample(k_act, logits, env_offset)
             new_state, _, res, env_done, metrics = core.step_autoreset(
                 s, initial_state, actions, with_obs=False)
             rec.write(t, agents_xy=s.agents_xy, targets_xy=s.targets_xy, active=s.active,
@@ -125,7 +129,7 @@ def make_state_rollout_fn(core, apply_state, num_steps: int, make_ctx=None):
     return rollout
 
 
-def make_recurrent_rollout_fn(core, apply_cell, num_steps: int):
+def make_recurrent_rollout_fn(core, apply_cell, num_steps: int, env_offset: int = 0):
     """Observation-free rollout of the recurrent family:
     ``apply_cell(grids, agents_xy, targets_xy, active, h) -> (new_h,
     logits, values)``; the hidden state dtype[B, N, H] is zeroed where an
@@ -141,7 +145,7 @@ def make_recurrent_rollout_fn(core, apply_cell, num_steps: int):
             key, k_act = jr.split(key)
             new_h, logits, values = apply_cell(s.obstacles, s.agents_xy, s.targets_xy,
                                                s.active, h)
-            actions, log_probs = _sample(k_act, logits)
+            actions, log_probs = _sample(k_act, logits, env_offset)
             new_state, _, res, env_done, metrics = core.step_autoreset(
                 s, initial_state, actions, with_obs=False)
             dones = res.terminated | res.truncated
@@ -156,7 +160,7 @@ def make_recurrent_rollout_fn(core, apply_cell, num_steps: int):
     return rollout
 
 
-def make_rollout_fn(core, apply_fn, num_steps: int):
+def make_rollout_fn(core, apply_fn, num_steps: int, env_offset: int = 0):
     """Observation-based rollout: ``apply_fn(obs) -> (logits, values)``.
     Returns ``rollout(env_state, initial_state, obs, key) -> (env_state,
     obs, key, Transition)``; ``initial_state`` feeds the cached
@@ -169,7 +173,7 @@ def make_rollout_fn(core, apply_fn, num_steps: int):
         for t in range(num_steps):
             key, k_act = jr.split(key)
             logits, values = apply_fn(obs)
-            actions, log_probs = _sample(k_act, logits)
+            actions, log_probs = _sample(k_act, logits, env_offset)
             new_state, new_obs, res, env_done, metrics = core.step_autoreset(
                 s, initial_state, actions)
             rec.write(t, obs=obs, actions=actions, log_probs=log_probs, values=values,

@@ -117,3 +117,26 @@ def test_train_ppo_cuda_takes_the_mixed_pools(maps):
         "--obs-radius", "2", "--rollout-steps", "4", "--max-episode-steps", "8",
         "--embed", "16", "--hidden", "16", "--minibatches", "2", "--iters", "1"])
     assert "iter    0" in printed
+
+
+def test_train_ppo_cuda_on_two_gloo_ranks():
+    """examples/train_ppo_cuda.py under two gloo ranks (torchrun's
+    environment), 2 iterations on the CPU: rank 0 prints every iteration
+    and rank 1 nothing; the mesh splits the 8 envs over the ranks and
+    gives the one-process run's numbers (reward per step and loss as
+    printed, to 4 decimals)."""
+    import train_ppo_cuda
+    from torch_mesh_parity import spawn
+
+    args = ["--device", "cpu", "--envs", "8", "--agents", "2", "--size", "8", "--obs-radius", "2",
+            "--rollout-steps", "4", "--max-episode-steps", "8", "--embed", "16", "--hidden", "16",
+            "--minibatches", "2", "--iters", "2"]
+    outs = spawn([os.path.join(ROOT, "examples", "train_ppo_cuda.py")] + args, 2)
+    _, alone = _quiet(train_ppo_cuda.main, args)
+
+    def numbers(text):
+        return re.findall(r"iter +(\d+) +reward/step (\S+) .* loss (\S+)", text)
+
+    assert [n[0] for n in numbers(outs[0])] == ["0", "1"], outs[0]
+    assert numbers(outs[1]) == []
+    assert numbers(outs[0]) == numbers(alone), (outs[0], alone)

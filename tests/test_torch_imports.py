@@ -1,6 +1,8 @@
 """The port never imports JAX nor the JAX package: with ``jax`` and
 ``pogema_tpu`` made unimportable, every module of ``pogema_torch``
-(walked with ``pkgutil``) and ``chip_smoke`` import."""
+(walked with ``pkgutil``: the mesh and the dry run of ``parallel`` among
+them) and ``chip_smoke`` import, and the multi-device learner's names
+are there."""
 
 import os
 import subprocess
@@ -21,6 +23,11 @@ import chip_smoke
 for name in ("pogema_v0", "Pogema", "PogemaVectorEnv", "GlobalPlannerPolicy", "BatchAStarAgent",
              "AnimationMonitor", "AnimationConfig"):
     getattr(pogema_torch, name)
+for name in ("make_mesh", "shard_batch", "initialize_distributed", "global_batch_from_host",
+             "batch_sharding", "replicated"):
+    getattr(pogema_torch.parallel, name)
+from pogema_torch.models import partition_params  # noqa: F401
+from pogema_torch.parallel.dryrun import dryrun_multichip, entry  # noqa: F401
 print(len(names))
 """
 
