@@ -1,0 +1,6 @@
+"""``device_idle.env``'s reading in the served cells, where it moves
+``serve_env_steps_per_s``."""
+
+from portbench.harness import load_module
+
+read = load_module("metrics", "device_idle.env").read
