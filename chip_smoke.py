@@ -35,8 +35,7 @@ result line):
      observations) reset on the card, then 3 timed trials of 256
      ``step_autoreset`` steps with actions from a CUDA generator, with
      its invariants checked and both kernels' launches counted (K1b twice
-     per step, K1 never); a per-part breakdown of one step and a profiler
-     kernel table follow; then ``pomapf``, the same config with
+     per step, K1 never); then ``pomapf``, the same config with
      ``observation_type='POMAPF'`` for 64 steps, the full-width path that
      launches K1 (once per step);
   6. policy: the shipped ``.ckpt_rec128_ft`` weights (committed as
@@ -68,8 +67,7 @@ result line):
      per step and once per reset): ms per step, split into the actions'
      upload, the core step and the host copy; then ``toolbox.PPOPolicy``
      with the shipped weights on one config-D env for 128 steps, ms per
-     act, against the CPU; a profiler kernel table of single-env steps
-     (``chiprun_out/profile_rim_env.txt``);
+     act, against the CPU;
  12. rim_vector: ``PogemaVectorEnv`` at config C's widths with 1024 envs,
      64 steps packed (K1b 129 launches), 64 steps grid (K1 65: a cached
      step's two observation sets share one launch) and 16 steps POMAPF,
@@ -688,140 +686,6 @@ def phase_main(device):
     return launches, summary
 
 
-def phase_breakdown(device, steps=32):
-    """Host-clock time of each part of a config-C cached step, each part
-    run ``steps`` times between two synchronisations (so the host syncs
-    inside a part, such as the collision fixpoint's, are in its time)."""
-    import torch
-
-    from pogema_torch import GridConfig, PogemaCore
-    from pogema_torch.core import collisions, metrics, obs, step as step_mod
-
-    core = PogemaCore(GridConfig(seed=0, **CONFIG_C), num_envs=NUM_ENVS_C, maze=True,
-                      device=device, obs_layout="packed")
-    cfg, n = core.cfg, CONFIG_C["num_agents"]
-    init, _ = core.reset(1, with_obs=False)
-    gen = torch.Generator(device=device).manual_seed(1)
-    acts = torch.randint(0, 5, (NUM_ENVS_C, n), device=device, generator=gen, dtype=torch.int32)
-    state = init
-    for _ in range(4):
-        state, *_ = core.step_autoreset(state, init, acts)
-    new_state, _ = step_mod.step(cfg, state, acts, with_obs=False)
-    done = step_mod.episode_done(cfg, new_state)
-    reset_state = core._cached_reset(new_state, init, done)
-    both = torch.cat([new_state.agents_xy, reset_state.agents_xy], dim=1)
-
-    def timed(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / steps * 1e3
-
-    parts = {
-        "full_step": lambda: core.step_autoreset(state, init, acts),
-        "resolve_moves": lambda: collisions.resolve_moves(cfg, state.obstacles, state.agents_xy,
-                                                          state.active, acts),
-        "step_state": lambda: step_mod.step(cfg, state, acts, with_obs=False),
-        "done_and_metrics": lambda: (step_mod.episode_done(cfg, new_state),
-                                     metrics.episode_metrics(cfg, new_state)),
-        "cached_select": lambda: core._cached_reset(new_state, init, done),
-        "k1_windows": lambda: obs.obstacle_windows(cfg, new_state.obstacles, both),
-        "assemble_obs_x2": lambda: (step_mod.observe_state(cfg, new_state),
-                                    step_mod.observe_state(cfg, reset_state)),
-    }
-    collisions.fixpoint.passes = 0
-    out = {k: timed(fn) for k, fn in parts.items()}
-    print("config-C step breakdown, ms per step (host clock): " + json.dumps(out), flush=True)
-    return out
-
-
-def _profile(label, fname, fn, steps):
-    """Device time by kernel over ``steps`` calls of ``fn``
-    (torch.profiler), written to chiprun_out/<fname>; prints the
-    device-busy share of the window."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
-    dev_us = sum(kernels.values())
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", fname), "w") as f:
-        for name, us in sorted(kernels.items(), key=lambda kv: -kv[1]):
-            f.write(f"{us / steps:10.1f} us/step  {name}\n")
-    print(f"profile over {steps} {label}: wall {wall * 1e3 / steps:.3f} ms/step "
-          f"(profiler on), kernels {dev_us / 1e3 / steps:.3f} ms/step, device busy share "
-          f"{dev_us / 1e6 / wall:.3f}", flush=True)
-    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"  {us / steps:9.1f} us/step  {name[:90]}", flush=True)
-    return dev_us / 1e6 / steps, kernels
-
-
-def profile_step(device, steps=8):
-    """The kernel table of a few config-C steps
-    (chiprun_out/profile_config_c.txt)."""
-    import torch
-
-    from pogema_torch import GridConfig, PogemaCore
-
-    core = PogemaCore(GridConfig(seed=0, **CONFIG_C), num_envs=NUM_ENVS_C, maze=True,
-                      device=device, obs_layout="packed")
-    state, _ = core.reset(1, with_obs=False)
-    gen = torch.Generator(device=device).manual_seed(1)
-    acts = [torch.randint(0, 5, (NUM_ENVS_C, CONFIG_C["num_agents"]), device=device,
-                          generator=gen, dtype=torch.int32) for _ in range(steps + 2)]
-    for a in acts[:2]:
-        state, *_ = core.step_autoreset(state, state, a)
-    init, box = state, [state]
-    todo = iter(acts[2:])
-
-    def one():
-        box[0] = core.step_autoreset(box[0], init, next(todo))[0]
-
-    _profile("config-C steps", "profile_config_c.txt", one, steps)
-
-
-def profile_serve(device, steps=8):
-    """The kernel table of a few config-D serving steps, each the body of
-    the evaluator's loop: policy forward, greedy action, env step, done
-    test and freeze (chiprun_out/profile_serve_d.txt)."""
-    import torch
-
-    from pogema_torch import GridConfig, PogemaCore
-    from pogema_torch.core import step as step_mod
-    from pogema_torch.core.api import select_state
-    from pogema_torch.interop import load_policy
-
-    core = PogemaCore(GridConfig(seed=0, **CONFIG_D), num_envs=NUM_ENVS_D, device=device)
-    model = load_policy(WEIGHTS, device=device)
-    st, _ = core.reset(core.make_key(5), with_obs=False)
-    box = [st, model.initial_carry((NUM_ENVS_D, CONFIG_D["num_agents"]))]
-
-    @torch.no_grad()
-    def one():
-        st, h = box
-        done = step_mod.episode_done(core.cfg, st)
-        h, logits, _ = model.step_from_state(st.obstacles, st.agents_xy, st.targets_xy,
-                                             st.active, h)
-        new, _ = step_mod.step(core.cfg, st, logits.argmax(-1).to(torch.int32), with_obs=False)
-        box[:] = [select_state(done, st, new), h]
-
-    one()
-    _profile("config-D serving steps", "profile_serve_d.txt", one, steps)
-
-
 def _rel_err(got, want):
     """max |got - want| / max(1, |want|), on the CPU in f32."""
     got, want = got.float().cpu(), want.float().cpu()
@@ -1263,8 +1127,7 @@ def phase_serve_e(device):
     pool, packed observations) with the shipped maze256 weights in bf16,
     greedy: one warm-up episode, then 2 timed episodes with K1b launched
     exactly once per policy step, the state invariants and finite metrics
-    (each episode also read by ``utils.profiling.ThroughputMeter`` inside a
-    ``trace_region``).
+    (each episode also read by ``utils.profiling.ThroughputMeter``).
     Then the policy card vs cpu at B = 2 over 16 chained steps, and
     ``toolbox.evaluate`` on one pool world (the config-E leg of
     examples/eval_ladder.py) with PPO and random, K1 launched exactly
@@ -1278,7 +1141,7 @@ def phase_serve_e(device):
     from pogema_torch.maps import mixed_pool
     from pogema_torch.parallel import make_policy_evaluator
     from pogema_torch.toolbox import evaluate
-    from pogema_torch.utils.profiling import ThroughputMeter, trace_region
+    from pogema_torch.utils.profiling import ThroughputMeter
 
     k1, kernel = _kernels()
     b, n, steps = NUM_ENVS_E, CONFIG_E["num_agents"], CONFIG_E["max_episode_steps"]
@@ -1301,8 +1164,7 @@ def phase_serve_e(device):
         torch.cuda.synchronize()
         meter.reset()
         t0 = time.perf_counter()
-        with trace_region("serve_e_episode"):
-            state, metrics = run(core.make_key(ep))
+        state, metrics = run(core.make_key(ep))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         meter.add(b * steps)
@@ -1767,44 +1629,6 @@ def phase_train_ff(device):
     return (launches["auto"], launches["windows"]), out
 
 
-def profile_train(device):
-    """The kernel table of one recurrent train step at config-D shapes with
-    T = 16 and one epoch (profile_train_d.txt beside the other kernel
-    tables): every kernel at the full step's shapes, an eighth of its
-    passes, so that the trace stays small. The same step is timed once
-    with the profiler off, for a busy share that the tracing does not
-    dilute."""
-    from pogema_torch import GridConfig, PogemaCore
-    from pogema_torch import parallel as tp
-    from pogema_torch.interop import load_policy
-
-    core = PogemaCore(GridConfig(seed=0, **CONFIG_D), num_envs=NUM_ENVS_D,
-                      auto_reset_mode="regen", device=device)
-    model = load_policy(WEIGHTS, device=device)
-    cfg = tp.PPOConfig(**dict(TRAIN_D_PPO, rollout_steps=16, epochs=1))
-    ts, tx = tp.init_recurrent_train_state(core, model, None, cfg, core.make_key(2))
-    step = tp.make_recurrent_train_step(core, model, cfg, tx)
-    box = [step(ts)[0]]
-
-    def one():
-        box[0] = step(box[0])[0]
-
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one()
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    dev_s, kernels = _profile("config-D recurrent train step (T=16, 1 epoch x 8 minibatches)",
-                              "profile_train_d.txt", one, 1)
-    k1b_us = sum(us for name, us in kernels.items() if "packed_observation_kernel" in name)
-    t, m = cfg.rollout_steps, cfg.minibatches
-    print(f"the same step with the profiler off: wall {plain_wall * 1e3:.1f} ms, so device busy "
-          f"share {dev_s / plain_wall:.3f}; K1b took {k1b_us:.1f} us of device time over "
-          f"{t + 1} launches at B={NUM_ENVS_D} and {m * t} at B={NUM_ENVS_D // m}", flush=True)
-
-
 def phase_k1_shapes(device):
     """K1 and K1b beside their bounds, plain versions and library
     yardsticks at the config-D serving shape, at the recurrent update's
@@ -2121,34 +1945,6 @@ def phase_rim_env(device):
     if max(errs) > POLICY_TOL or flips or not decided:
         raise AssertionError("the card's PPOPolicy differs from the cpu's beyond the tolerance")
     return tuple(total), summary
-
-
-def profile_rim_env(device, steps=16):
-    """The kernel table of a few single-env steps at RIM_ENV's size, each
-    ``env.step`` with host actions as a Gymnasium user calls it
-    (chiprun_out/profile_rim_env.txt); the same steps are timed again with
-    the profiler off, for a busy share that the tracing does not dilute."""
-    import numpy as np
-    import torch
-
-    from pogema_torch import GridConfig, pogema_v0
-
-    env = pogema_v0(GridConfig(**RIM_ENV), device=device)
-    env.reset()
-    rng = np.random.default_rng(2)
-    acts = [rng.integers(0, 5, size=RIM_ENV["num_agents"]).tolist() for _ in range(2 * steps + 2)]
-    for a in acts[:2]:
-        env.step(a)
-    todo = iter(acts[2:])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        env.step(next(todo))
-    wall = (time.perf_counter() - t0) / steps
-    dev_s, _ = _profile("single-env steps (64x64, 64 agents)", "profile_rim_env.txt",
-                        lambda: env.step(next(todo)), steps)
-    print(f"the same steps with the profiler off: {wall * 1e3:.3f} ms/step, so device busy share "
-          f"{dev_s / wall:.3f}", flush=True)
 
 
 def _check_obs_sample(label, what, got, cfg, state, idx):
@@ -2752,28 +2548,13 @@ def main() -> int:
     phase("devices_agree", phase_devices_agree, device)
     main_out = phase("main_path", phase_main, device)
     pomapf_out = phase("pomapf", phase_pomapf, device)
-    phase("breakdown", phase_breakdown, device)
-    # The kernel tables need torch.profiler; where it is missing they are
-    # left out, and any other fault in them fails the run like a phase.
-    try:
-        import torch.profiler  # noqa: F401
-        profiling = True
-    except ImportError:
-        print("profile: torch.profiler unavailable on this machine", flush=True)
-        profiling = False
-    if profiling:
-        phase("profile_config_c", profile_step, device)
     phase("policy", phase_policy, device)
     serve_out = phase("serve", phase_serve, device)
     serve_e_out = phase("serve_e", phase_serve_e, device)
-    if profiling:
-        phase("profile_serve", profile_serve, device)
     phase("serve_agree", phase_serve_agree, device)
     phase("planner", phase_planner, device)
     phase("rim_agree", phase_rim_agree, device)
     rim_env_out = phase("rim_env", phase_rim_env, device)
-    if profiling:
-        phase("profile_rim_env", profile_rim_env, device)
     rim_vector_out = phase("rim_vector", phase_rim_vector, device)
     phase("rim_toolbox", phase_rim_toolbox, device)
     phase("train_agree", phase_train_agree, device)
@@ -2782,8 +2563,6 @@ def main() -> int:
     mesh_one_out = phase("mesh_one", phase_mesh_one, device)
     mesh_gloo_out = phase("mesh_gloo", phase_mesh_gloo, device)
     mesh_nccl_out = phase("mesh_nccl", phase_mesh_nccl, device)
-    if profiling:
-        phase("profile_train", profile_train, device)
 
     shapes = phase("k1_shapes", phase_k1_shapes, device)
     if failed or None in (record, record_b, wide_out, main_out, pomapf_out, serve_out,

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..grid_config import GridConfig, StaticConfig
+from ..utils.profiling import traced
 from . import metrics as metrics_mod
 from . import random as jr
 from . import step as step_mod
@@ -148,6 +149,7 @@ class PogemaCore:
         """The key words of ``jax.random.key(seed)`` on this core's device."""
         return jr.key(seed, self.device)
 
+    @traced("pogema.reset")
     def reset(self, seed_or_key, with_obs: bool = True):
         """(state, observations) for B envs from one seed or key
         (int64[2]). ``with_obs=False`` returns (state, None).
@@ -181,6 +183,7 @@ class PogemaCore:
 
     # -- auto-reset --------------------------------------------------------
 
+    @traced("pogema.autoreset")
     def _cached_reset(self, new_state, initial_state, done) -> EnvState:
         invariant = {"obstacles", "placement_ok",
                      "target_queue" if self.cfg.on_target == "restart" else "targets_xy"}
@@ -194,6 +197,7 @@ class PogemaCore:
             kw[f] = _select(done, fresh, cur)
         return EnvState(**kw)
 
+    @traced("pogema.autoreset")
     def _regen_reset(self, new_state, initial_state, done) -> EnvState:
         if not bool(done.any()):
             return new_state
@@ -213,6 +217,7 @@ class PogemaCore:
             kw[f] = cur
         return EnvState(**kw)
 
+    @traced("pogema.step_autoreset")
     def step_autoreset(self, state: EnvState, initial_state: EnvState, actions,
                        with_obs: bool = True):
         """Auto-resetting step. ``initial_state`` must be the unmodified

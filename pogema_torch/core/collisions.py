@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..grid_config import MOVES, StaticConfig
+from ..utils.profiling import traced
 
 
 def _moves(device):
@@ -168,6 +169,7 @@ _RESOLVERS = {
 }
 
 
+@traced("pogema.collisions")
 def resolve_moves(cfg: StaticConfig, obstacles, agents_xy, active, actions):
     """New positions i32[B, N, 2] under ``cfg.collision_system``."""
     if cfg.num_agents == 1:

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..grid_config import OBSTACLE, StaticConfig
+from ..utils.profiling import traced
 from . import random as jr
 
 _MAX_TRIES = 16
@@ -103,6 +104,7 @@ def _segmented_min_scan(vals, boundary, dim: int, reverse: bool):
     return out.flip(dim) if reverse else out
 
 
+@traced("pogema.generator.components")
 def connected_components(padded_grid) -> torch.Tensor:
     """i64[B, P*P]: for free cells the minimum flat index of their
     4-connected component; P*P for obstacles."""
@@ -140,6 +142,7 @@ def multi_cell_component(components, p: int) -> torch.Tensor:
     return (free & nbr).reshape(b, p * p)
 
 
+@traced("pogema.generator.place")
 def place_agents_and_targets(cfg: StaticConfig, keys, components):
     """N distinct agent cells among eligible cells, then per agent a
     target: a free cell of its component, distinct from earlier targets
@@ -210,6 +213,7 @@ def build_respawn_table(components, p: int) -> dict:
     return {"cells": order, "offset": offset, "count": count, "rank": rank}
 
 
+@traced("pogema.generator.queue")
 def build_target_queue(keys, table, components, target_cells, queue_len: int, p: int):
     """int[B, N, Q] queue of future LifeLong goals: uniform free cells of
     the agent's component with q_k != q_{k-1} (q_{-1} the first target)
@@ -249,6 +253,7 @@ def build_target_queue(keys, table, components, target_cells, queue_len: int, p:
 # ---------------------------------------------------------------------------
 
 
+@traced("pogema.generator.map")
 def _make_map(cfg: StaticConfig, keys, fixed_map, map_bank, maze: bool):
     b = keys.shape[0]
     if fixed_map is not None:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..grid_config import StaticConfig
+from ..utils.profiling import traced
 from . import collisions, generator, random as jr
 from .obs import observe
 from .types import EnvState, StepResult
@@ -62,11 +63,13 @@ def reset(cfg: StaticConfig, keys, fixed_map=None, fixed_agents_xy=None,
     )
 
 
+@traced("pogema.observe")
 def observe_state(cfg: StaticConfig, state: EnvState, obst_w=None):
     return observe(cfg, state.obstacles, state.agents_xy, state.targets_xy,
                    state.active, obst_w)
 
 
+@traced("pogema.step")
 def step(cfg: StaticConfig, state: EnvState, actions, with_obs: bool = True):
     """One step of B envs. actions: int[B, N] in [0, 5). Returns
     (EnvState, StepResult); the observations are None with

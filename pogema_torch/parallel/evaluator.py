@@ -24,6 +24,7 @@ from ..core import metrics as metrics_mod
 from ..core import random as jr
 from ..core import step as step_mod
 from ..core.api import select_state
+from ..utils.profiling import traced
 
 # Folded into the caller's key for the per-step action stream.
 ACTION_STREAM = 0x9E3779B9
@@ -46,6 +47,7 @@ def make_policy_evaluator(core, model, greedy: bool = True):
     cfg = core.cfg
     recurrent = hasattr(model, "initial_carry")
 
+    @traced("pogema.policy")
     def policy(st, h):
         if recurrent:
             h, logits, _ = model.step_from_state(st.obstacles, st.agents_xy, st.targets_xy,
@@ -55,6 +57,7 @@ def make_policy_evaluator(core, model, greedy: bool = True):
         return h, logits
 
     @torch.no_grad()
+    @traced("pogema.episode")
     def run(key):
         key = torch.as_tensor(key, device=core.device).to(torch.int64)
         state, _ = core.reset(key, with_obs=False)
