@@ -25,7 +25,12 @@ result line):
      launches counted exactly (PogemaCore at 16 x 256 x 128x128, the
      recurrent and 'windows' train steps at 16 x 256, PogemaVectorEnv at
      8 x 256, each against the CPU), then K1b timed at config E's
-     serving shape;
+     serving shape; then k7: the threefry kernel K7 bit-equal to its plain
+     version at the cached select's split of 4096 keys and the
+     placement's bits at [1024, 74*74] and [4096, 74*74] (offsets 0 and
+     above 2**32, fold_in of a scalar and per key), and timed at the
+     select's and the placement's shapes beside its bound and the plain
+     version;
   4. every collision system x on_target, cached and regen auto-reset: a
      small reset and 64 ``step_autoreset`` steps on the card must equal
      the same run on the CPU bit for bit (the CPU run is held against
@@ -34,10 +39,10 @@ result line):
      radius 5, priority collisions, 'finish', cached auto-reset, packed
      observations) reset on the card, then 3 timed trials of 256
      ``step_autoreset`` steps with actions from a CUDA generator, with
-     its invariants checked and both kernels' launches counted (K1b twice
-     per step, K1 never); then ``pomapf``, the same config with
-     ``observation_type='POMAPF'`` for 64 steps, the full-width path that
-     launches K1 (once per step);
+     its invariants checked and the kernels' launches counted (K1b twice
+     per step, K1 never, K7 once per step); then ``pomapf``, the same
+     config with ``observation_type='POMAPF'`` for 64 steps, the
+     full-width path that launches K1 (once per step);
   6. policy: the shipped ``.ckpt_rec128_ft`` weights (committed as
      ``pogema_torch/weights/rec128_ft.npz``) in bf16 on 64 config-D
      states: K1 and K1b bit-equal at M = N = 128, logits and values within
@@ -46,6 +51,7 @@ result line):
   7. serve, the evaluation path at full width: ``make_policy_evaluator``
      on config D (1024 envs x 128 agents, LifeLong 64x64, r=5) with those
      weights, 3 timed greedy episodes, K1b launched exactly once per step,
+     K7 10 times an episode and 2N + 5 times per placement try,
      invariants and metrics checked;
      then serve_e, config E (1024 envs x 256 agents, 128x128 worlds of
      the mixed random + maze pool, packed) served with the shipped
@@ -115,6 +121,13 @@ and for one env of 64 and of 128 agents, and at three shapes for 16 to
 128 centres per block), one JSON line listing the kernels and, last, the
 ok line.
 
+    python3 chip_smoke.py --fixed-units C.random 2613000120 128
+
+runs a benchmark cell's set-up and then its first units on one seed and
+prints the collision fixpoint's passes over them with digests of what
+they left, so two checkouts compare that counter over the same units
+(``fixed_units``).
+
 Needs one CUDA device; exits non-zero without one, and outside a
 checkout of the repository.
 """
@@ -132,6 +145,11 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+# H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper white paper).
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# threefry2x32-20 of one counter: 20 rounds of add, rotate and xor and 5
+# key injections (csrc/threefry.cu).
+K7_OPS_PER_COUNTER = 80
 
 CONFIG_C = dict(size=64, num_agents=64, obs_radius=5, max_episode_steps=128,
                 collision_system="priority", on_target="finish")
@@ -540,6 +558,76 @@ def time_k1b(device, b, p, n, r):
                         _graph_launches(b * n * 3 * ww * 4))
 
 
+def phase_k7(device):
+    """K7, the threefry kernel, bit-equal to its plain version on the card:
+    the cached select's split of 4096 keys into 1 and 3, the placement's
+    bits at [1024, P*P] and [4096, P*P] (P = 74) from offset 0 and from
+    above 2**32, fold_in of a scalar and of per-key data, one launch each.
+    Then timed at the select's and the placement's shapes by CUDA events
+    and by graph replay, beside its bound and the plain version's times.
+    Returns the kernel record."""
+    import torch
+
+    from pogema_torch.ops import cuda_threefry as k7
+    from pogema_torch.ops.threefry import bits_ref, fold_in_ref, split_ref
+
+    big = (CONFIG_D["size"] + 2 * CONFIG_D["obs_radius"]) ** 2
+    g = torch.Generator().manual_seed(7)
+    keys = {rows: torch.randint(0, 2**32, (rows, 2), dtype=torch.int64, generator=g).to(device)
+            for rows in (1024, 4096)}
+    data = torch.randint(-2**40, 2**40, (1024,), dtype=torch.int64, generator=g).to(device)
+    cases = {
+        "split [4096, 2] -> 1": (lambda: k7.split(keys[4096], 1), lambda: split_ref(keys[4096], 1)),
+        "split [4096, 2] -> 3": (lambda: k7.split(keys[4096], 3), lambda: split_ref(keys[4096], 3)),
+        "bits [1024, P*P]": (lambda: k7.bits(keys[1024], (big,)), lambda: bits_ref(keys[1024], (big,))),
+        "bits [4096, P*P]": (lambda: k7.bits(keys[4096], (big,)), lambda: bits_ref(keys[4096], (big,))),
+        "bits [1024, P*P] from 2**32 - 77": (lambda: k7.bits(keys[1024], (big,), 2**32 - 77),
+                                             lambda: bits_ref(keys[1024], (big,), 2**32 - 77)),
+        "fold_in [1024, 2] of 127": (lambda: k7.fold_in(keys[1024], 127),
+                                     lambda: fold_in_ref(keys[1024], 127)),
+        "fold_in [1024, 2] per key": (lambda: k7.fold_in(keys[1024], data),
+                                      lambda: fold_in_ref(keys[1024], data)),
+    }
+    for label, (run, plain) in cases.items():
+        before = k7.threefry_cuda.launches
+        got = run()
+        torch.cuda.synchronize()
+        if k7.threefry_cuda.launches != before + 1:
+            raise AssertionError(f"K7 at {label} launched {k7.threefry_cuda.launches - before} "
+                                 f"times, expected 1")
+        if not torch.equal(got, plain()):
+            raise AssertionError(f"K7 differs from its plain version at {label}")
+    print(f"K7 bit-equal to its plain version at {len(cases)} shapes", flush=True)
+
+    saved = k7.threefry_cuda.launches
+    record = {"kernel": "K7 threefry"}
+    for label, rows, numel, run, plain, out_bytes in (
+            ("select", 4096, 1, cases["split [4096, 2] -> 1"][0], cases["split [4096, 2] -> 1"][1],
+             16),
+            ("placement", 1024, big, cases["bits [1024, P*P]"][0], cases["bits [1024, P*P]"][1],
+             8)):
+        counters = rows * numel
+        nbytes = 16 * rows + out_bytes * counters
+        alu_ms = K7_OPS_PER_COUNTER * counters / INT32_OPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        launches = _graph_launches(out_bytes * counters)
+        rec = {"shape": [rows, numel], "bound_ms": max(alu_ms, bytes_ms),
+               "bound_by": "int32 ALU" if alu_ms >= bytes_ms else "bytes",
+               "device_ms": graph_time_ms(run, launches), "ms": cuda_time_ms(run),
+               "plain_device_ms": graph_time_ms(plain, 4, replays=3),
+               "plain_ms": cuda_time_ms(plain, iters=5, warmup=2)}
+        record[label] = rec
+        print(f"K7 at the {label}'s [{rows}, {numel}]: {rec['device_ms']:.4f} ms device time by "
+              f"graph replay ({rec['bound_ms'] / rec['device_ms']:.2f} of its bound, "
+              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}: {alu_ms:.4f} ms for "
+              f"{K7_OPS_PER_COUNTER} int32 operations a counter at {INT32_OPS_PER_S:.4g} a second, "
+              f"{bytes_ms:.4f} ms for {nbytes} bytes), {rec['ms']:.4f} ms by events; plain "
+              f"{rec['plain_device_ms']:.4f} ms by graph replay, {rec['plain_ms']:.4f} ms by "
+              f"events", flush=True)
+    k7.threefry_cuda.launches = saved
+    return record
+
+
 def _states_equal(a, b):
     from pogema_torch.interop import state_to_numpy
     import numpy as np
@@ -637,10 +725,12 @@ def phase_main(device):
 
     from pogema_torch import GridConfig, PogemaCore
     from pogema_torch.core import collisions
+    from pogema_torch.ops.cuda_threefry import threefry_cuda
 
     k1, kernel = _kernels()
     core = PogemaCore(GridConfig(seed=0, **CONFIG_C), num_envs=NUM_ENVS_C, maze=True,
                       device=device, obs_layout="packed")
+    k7_start = threefry_cuda.launches
     gen = torch.Generator(device=device).manual_seed(0)
     b, n = NUM_ENVS_C, CONFIG_C["num_agents"]
 
@@ -655,6 +745,8 @@ def phase_main(device):
         raise AssertionError(f"reset launched K1b {kernel.launches} times, expected 1")
     check_invariants(state, obs, core.cfg)
     init = state
+    k7_reset = threefry_cuda.launches - k7_start
+    k7_start = threefry_cuda.launches
     best, done_envs, total_steps = float("inf"), 0, 0
     for trial in range(TRIALS):
         torch.cuda.synchronize()
@@ -669,6 +761,11 @@ def phase_main(device):
         check_invariants(state, obs, core.cfg)
     launches = (k1.launches, kernel.launches)
     passes = collisions.fixpoint.passes
+    # The cached select advances every env's key with one K7 split a step.
+    k7_steps = threefry_cuda.launches - k7_start
+    if k7_steps != total_steps:
+        raise AssertionError(f"K7 launched {k7_steps} times over {total_steps} steps, expected "
+                             f"one a step")
     # The pre-reset and the post-reset observation of a step are one K1b
     # launch each; the packed layout does not go through K1.
     if launches != (0, 1 + 2 * total_steps):
@@ -681,7 +778,8 @@ def phase_main(device):
     summary = {"reset_s": reset_s, "env_steps_per_s": sps, "ms_per_step": best / STEPS_PER_TRIAL * 1e3,
                "steps": total_steps, "episodes_finished": finished,
                "fixpoint_passes_per_step": passes / total_steps,
-               "k1_launches": launches[0], "k1b_launches": launches[1]}
+               "k1_launches": launches[0], "k1b_launches": launches[1],
+               "k7_launches_reset": k7_reset, "k7_launches_per_step": k7_steps / total_steps}
     print("main path (config C, cached, packed obs): " + json.dumps(summary), flush=True)
     return launches, summary
 
@@ -779,6 +877,7 @@ def phase_serve(device):
     from pogema_torch.interop import load_policy
     from pogema_torch.core.obs import packed_observation
     from pogema_torch.models.embed_actor_critic import embed_obs
+    from pogema_torch.ops.cuda_threefry import threefry_cuda
     from pogema_torch.parallel import make_policy_evaluator
 
     k1, kernel = _kernels()
@@ -787,11 +886,18 @@ def phase_serve(device):
     model = load_policy(WEIGHTS, device=device)
     run = make_policy_evaluator(core, model)
 
-    times, throughput = [], []
+    # K7 launches of an episode: the reset's split of the key into B env
+    # keys and of those into state, generator and queue keys, the action
+    # stream's fold_in, the goal queue's split and two randints (a split
+    # and two bits each), and per placement try the try's split, the
+    # attempt's split, the map's Bernoulli draw, the placement's split, the
+    # agents' uniform and a fold_in and bits per agent.
+    k7_fixed, k7_per_try = 2 + 1 + 7, 5 + 2 * n
+    times, throughput, k7_episodes = [], [], []
     k1.launches = kernel.launches = 0
     collisions.fixpoint.passes = 0
     for ep in range(SERVE_EPISODES):
-        before = kernel.launches
+        before, k7_before = kernel.launches, threefry_cuda.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = run(core.make_key(ep))
@@ -800,6 +906,11 @@ def phase_serve(device):
         if kernel.launches - before != steps:
             raise AssertionError(f"episode {ep} launched K1b {kernel.launches - before} times, "
                                  f"expected {steps} (one per policy step)")
+        k7_episodes.append(threefry_cuda.launches - k7_before)
+        tries, rest = divmod(k7_episodes[-1] - k7_fixed, k7_per_try)
+        if tries < 1 or rest != 0:
+            raise AssertionError(f"episode {ep} launched K7 {k7_episodes[-1]} times, expected "
+                                 f"{k7_fixed} + {k7_per_try} per placement try")
         check_state_invariants(state)
         thr = metrics["avg_throughput"]
         if thr.shape != (b,) or not torch.isfinite(thr).all() or not (state.step_count == steps).all():
@@ -850,6 +961,7 @@ def phase_serve(device):
                "avg_throughput": throughput, "k1_launches": launches[0],
                "k1b_launches": launches[1],
                "k1b_launches_per_episode": launches[1] / SERVE_EPISODES,
+               "k7_launches_per_episode": k7_episodes,
                "fixpoint_passes_per_step": passes / (SERVE_EPISODES * steps),
                "k1b_device_ms_config_d": k1b_ms, "k1b_bound_ms_config_d": k1b_bound_ms}
     print("serve (config D, 1024 x 128, rec128_ft bf16, greedy): " + json.dumps(summary), flush=True)
@@ -2284,6 +2396,53 @@ def _config_d_step(device, mesh=None, lo=0):
     return out, init_hashes, actions
 
 
+def fixed_units(workload, seed, units) -> int:
+    """``--fixed-units WORKLOAD SEED UNITS``: the benchmark cell's set-up on
+    ``SEED``, then its first ``UNITS`` units, as a timed window would start.
+    Prints one JSON line: the collision fixpoint's passes over those units
+    (each unit's and their sum), the env steps they made, and sha256
+    digests of what they left (``C.random``: the env state; ``D.serve``:
+    each kept episode's final rows and metrics, and apart from them its
+    logits). ``fixpoint_passes_per_step`` averages over whatever units a
+    timed window holds, so a faster checkout reads it over more and other
+    units; these counts compare two checkouts over the same ones. Run it
+    from the root of each checkout (copy this file there)."""
+    import hashlib
+
+    import torch
+
+    from portbench.harness import Cell, Context, load_manifest, load_module
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for name in sorted(tensors):
+            h.update(name.encode())
+            h.update(tensors[name].detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
+
+    cell = Cell(load_manifest(), workload)
+    ctx = Context(cell, seed, "cuda", False)
+    drv = load_module("drivers", cell.traffic["driver"]).Driver(ctx)
+    drv.setup()
+    ctx.sync()
+    per_unit = []
+    for _ in range(units):
+        before = drv.counters()["fixpoint_passes"]
+        drv.unit()
+        per_unit.append(drv.counters()["fixpoint_passes"] - before)
+    out = {"workload": workload, "seed": seed, "units": units, "passes": sum(per_unit),
+           "passes_per_unit": per_unit, "steps": units * drv.work["steps"],
+           "passes_per_step": sum(per_unit) / (units * drv.work["steps"])}
+    if workload.startswith("C."):
+        out["state_digest"] = digest(drv.state.tensors())
+    else:
+        out["state_digest"] = digest({f"{i}.{k}": v for i, ep in enumerate(drv.episodes)
+                                      for part in ep[2:] for k, v in part.items()})
+        out["logits_digest"] = digest({str(i): ep[1] for i, ep in enumerate(drv.episodes)})
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def mesh_worker(spec_path) -> int:
     """One rank of mesh_gloo / mesh_nccl (started by ``_mesh_spawn`` with
     torchrun's environment): for each mesh of its world, the small
@@ -2506,6 +2665,8 @@ def main() -> int:
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(sys.argv[2])
+    if len(sys.argv) == 5 and sys.argv[1] == "--fixed-units":
+        return fixed_units(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -2530,7 +2691,7 @@ def main() -> int:
         return out
 
     def do_build():
-        reports = build.build_all(["windows"])
+        reports = build.build_all(build.SOURCES)
         for name, log in reports.items():
             for line in log.splitlines():
                 if any(k in line for k in ("Compiling entry", "registers", "smem", "spill")):
@@ -2545,6 +2706,7 @@ def main() -> int:
     record_b = phase("k1b", phase_k1b, device, NUM_ENVS_C, p, CONFIG_C["num_agents"],
                      CONFIG_C["obs_radius"])
     wide_out = phase("k1b_wide", phase_k1b_wide, device)
+    record_k7 = phase("k7", phase_k7, device)
     phase("devices_agree", phase_devices_agree, device)
     main_out = phase("main_path", phase_main, device)
     pomapf_out = phase("pomapf", phase_pomapf, device)
@@ -2565,7 +2727,7 @@ def main() -> int:
     mesh_nccl_out = phase("mesh_nccl", phase_mesh_nccl, device)
 
     shapes = phase("k1_shapes", phase_k1_shapes, device)
-    if failed or None in (record, record_b, wide_out, main_out, pomapf_out, serve_out,
+    if failed or None in (record, record_b, record_k7, wide_out, main_out, pomapf_out, serve_out,
                           serve_e_out, train_out, train_ff_out, shapes, rim_env_out,
                           rim_vector_out, mesh_one_out, mesh_gloo_out, mesh_nccl_out):
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
@@ -2614,7 +2776,9 @@ def main() -> int:
     # The card's name and power limit once more, beside the results: a
     # reader of the output's tail finds them there.
     print(card, flush=True)
-    print(json.dumps({"kernels": [record, record_b]}))
+    record_k7["launches_by_path"] = {"main_path_per_step": main_out[1]["k7_launches_per_step"],
+                                     "serve_per_episode": serve_out[1]["k7_launches_per_episode"]}
+    print(json.dumps({"kernels": [record, record_b, record_k7]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@ NVIDIA H100.
 
 A port of ``pogema_tpu`` (which stays the reference): B envs × N agents
 step together as batched tensor code on one device, and the packed
-observation windows come from a hand-written CUDA kernel
-(``ops/cuda_windows.py``, built from ``csrc/`` at first use). State and
+observation windows come from hand-written CUDA kernels
+(``ops/cuda_windows.py``, built from ``csrc/`` at first use), as does the
+threefry hash of every random draw (``ops/cuda_threefry.py``). State and
 resets are bit-equal to the JAX package for the same seed.
 
 Beside the core: the policy models (``models``), flax weights loaded

@@ -15,7 +15,10 @@ and ``bits`` returns the XOR of the two output words.
 Keys are raw key words in int64 tensors ``[..., 2]`` with values in
 ``[0, 2**32)``: PyTorch has no shifts for ``uint32`` on the CPU, so all
 arithmetic runs in int64 and is masked back to 32 bits. Every function
-is batched: a key tensor ``[B, 2]`` gives ``[B, *shape]`` draws.
+is batched: a key tensor ``[B, 2]`` gives ``[B, *shape]`` draws. The
+hash itself runs in ``ops/cuda_threefry.py``: one launch of the K7
+kernel for keys on a card, its plain int64 version (``ops/threefry.py``)
+for keys on the CPU.
 
 Because each element hashes its own flat index, any contiguous run of a
 draw can be made alone: ``offset`` (in ``split``, ``bits``, ``uniform``,
@@ -30,29 +33,8 @@ from __future__ import annotations
 
 import torch
 
-_M32 = 0xFFFFFFFF
-_PARITY = 0x1BD11BDA
-_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _rotl(x, d: int):
-    return ((x << d) | (x >> (32 - d))) & _M32
-
-
-def threefry2x32(k0, k1, x0, x1):
-    """The threefry2x32 hash (20 rounds) of counter words ``(x0, x1)``
-    under key words ``(k0, k1)``; all int64 tensors holding u32 values,
-    broadcast together. Returns the two output words."""
-    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x0, x1
+from ..ops import cuda_threefry
+from ..ops.threefry import M32 as _M32, threefry2x32  # noqa: F401  (the hash, for callers and tests)
 
 
 def key(seed: int, device="cpu") -> torch.Tensor:
@@ -60,39 +42,20 @@ def key(seed: int, device="cpu") -> torch.Tensor:
     return torch.tensor([0, int(seed) & _M32], dtype=torch.int64, device=device)
 
 
-def _hash_counters(keys, shape, offset: int = 0):
-    """threefry of the flat index (plus ``offset``) of every element of
-    ``shape`` under each key: two int64 tensors ``[*batch, *shape]``."""
-    batch = keys.shape[:-1]
-    numel = 1
-    for d in shape:
-        numel *= int(d)
-    idx = torch.arange(offset, offset + numel, dtype=torch.int64, device=keys.device).reshape(shape)
-    view = tuple(batch) + (1,) * len(shape)
-    k0 = keys[..., 0].reshape(view)
-    k1 = keys[..., 1].reshape(view)
-    return threefry2x32(k0, k1, idx >> 32, idx & _M32)
-
-
 def split(keys: torch.Tensor, num: int = 2, offset: int = 0) -> torch.Tensor:
     """``jax.random.split``: ``[..., 2]`` -> ``[..., num, 2]``; keys
     ``[offset, offset + num)`` of a larger split."""
-    b0, b1 = _hash_counters(keys, (num,), offset)
-    return torch.stack([b0, b1], dim=-1)
+    return cuda_threefry.split(keys.contiguous(), num, offset)
 
 
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` with a scalar or per-key integer ``data``."""
-    data = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & _M32
-    zero = torch.zeros_like(data)
-    b0, b1 = threefry2x32(keys[..., 0], keys[..., 1], zero, data)
-    return torch.stack([b0, b1], dim=-1)
+    return cuda_threefry.fold_in(keys.contiguous(), data)
 
 
 def bits(keys: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     """``jax.random.bits`` (u32) as int64 values in ``[0, 2**32)``."""
-    b0, b1 = _hash_counters(keys, tuple(shape), offset)
-    return b0 ^ b1
+    return cuda_threefry.bits(keys.contiguous(), shape, offset)
 
 
 def uniform(keys: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0,

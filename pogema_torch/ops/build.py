@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` at the
 root of the checkout, compiled for ``sm_90a`` with a plain C entry point
 (no PyTorch headers, so a build takes seconds). The hash covers the
 source and the flags, so an edited source is rebuilt and an unchanged
-one is reused. ``build_all`` starts one nvcc per source at once.
+one is reused. ``build_all`` starts one nvcc per source at once, and
+:func:`load` builds every source that is not built yet in one such call,
+so a checkout's first run waits for one parallel build, not one per
+kernel.
 
 Nothing here runs at import: the tests import every module on machines
 without nvcc.
@@ -21,6 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("threefry", "windows")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -68,12 +72,13 @@ def build_all(names) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed."""
+    """The built library for ``csrc/<name>.cu``, building it, and every
+    other source of :data:`SOURCES` not built yet, if needed."""
     lib = _loaded.get(name)
     if lib is None:
         target = _target(name)
         if not target.exists():
-            build_all([name])
+            build_all(dict.fromkeys((name, *SOURCES)))
         lib = ctypes.CDLL(str(target))
         _loaded[name] = lib
     return lib
