@@ -56,9 +56,10 @@ result line):
      then serve_e, config E (1024 envs x 256 agents, 128x128 worlds of
      the mixed random + maze pool, packed) served with the shipped
      ``.ckpt_maze256`` weights (``weights/maze256.npz``) in bf16: a
-     warm-up and 2 timed greedy episodes, K1b once per step, the policy
-     card vs CPU at B = 2, and the eval ladder's config-E leg (PPO and
-     random through ``toolbox.evaluate``, K1 steps + 1 times each);
+     warm-up and 2 greedy episodes, K1b once per step (their timing is
+     the benchmark's cell ``E.serve``), the policy card vs CPU at B = 2,
+     and the eval ladder's config-E leg (PPO and random through
+     ``toolbox.evaluate``, K1 steps + 1 times each);
   8. serve_agree: both evaluators (policy, f32 model; planner) on the
      card and on the CPU with the same keys must agree bit for bit (the
      policy may first differ only at a near-tie, which is printed);
@@ -1237,10 +1238,10 @@ def phase_serve_e(device):
     """Config-E serving: ``make_policy_evaluator`` on ``PogemaCore`` of
     config E (NUM_ENVS_E envs x 256 agents, 128x128 worlds from the mixed
     pool, packed observations) with the shipped maze256 weights in bf16,
-    greedy: one warm-up episode, then 2 timed episodes with K1b launched
+    greedy: one warm-up episode, then 2 episodes with K1b launched
     exactly once per policy step, the state invariants and finite metrics
-    (each episode also read by ``utils.profiling.ThroughputMeter``).
-    Then the policy card vs cpu at B = 2 over 16 chained steps, and
+    (the benchmark's cell ``E.serve`` times such episodes). Then the
+    policy card vs cpu at B = 2 over 16 chained steps, and
     ``toolbox.evaluate`` on one pool world (the config-E leg of
     examples/eval_ladder.py) with PPO and random, K1 launched exactly
     steps + 1 times each. Returns ({path: (K1, K1b) launches}, summary)."""
@@ -1253,7 +1254,6 @@ def phase_serve_e(device):
     from pogema_torch.maps import mixed_pool
     from pogema_torch.parallel import make_policy_evaluator
     from pogema_torch.toolbox import evaluate
-    from pogema_torch.utils.profiling import ThroughputMeter
 
     k1, kernel = _kernels()
     b, n, steps = NUM_ENVS_E, CONFIG_E["num_agents"], CONFIG_E["max_episode_steps"]
@@ -1262,25 +1262,13 @@ def phase_serve_e(device):
                       obs_layout="packed")
     model = load_policy(WEIGHTS_E, device=device)
     run = make_policy_evaluator(core, model)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     run(core.make_key(100))
-    torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
 
-    launches, times, throughput, metered = {}, [], [], []
-    meter = ThroughputMeter(device)
+    launches, throughput = {}, []
     k1.launches = kernel.launches = 0
     for ep in range(2):
         before = kernel.launches
-        torch.cuda.synchronize()
-        meter.reset()
-        t0 = time.perf_counter()
         state, metrics = run(core.make_key(ep))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        meter.add(b * steps)
-        metered.append(meter.lap())
         if kernel.launches - before != steps:
             raise AssertionError(f"config-E episode {ep} launched K1b {kernel.launches - before} "
                                  f"times, expected {steps}")
@@ -1298,7 +1286,6 @@ def phase_serve_e(device):
     core.reset(core.make_key(9), with_obs=False)
     torch.cuda.synchronize()
     reset_s = time.perf_counter() - t0
-    best = min(times)
     del core, run, state, metrics
 
     # The policy card vs cpu at B = 2: 16 chained steps, four random moves
@@ -1336,11 +1323,8 @@ def phase_serve_e(device):
             raise AssertionError(f"eval_ladder {algo}: avg_throughput {m['avg_throughput']}")
         ladder[algo] = {"seconds": time.perf_counter() - t0,
                         "avg_throughput": m["avg_throughput"]}
-    summary = {"envs": b, "agents": n, "warmup_episode_s": warmup_s, "episode_s": times,
-               "reset_s": reset_s, "loop_ms_per_step": (best - reset_s) / steps * 1e3,
-               "ms_per_step": best / steps * 1e3, "env_steps_per_s": b * steps / best,
-               "throughput_meter_env_steps_per_s": metered,
-               "avg_throughput": throughput, "k1b_launches": launches["serve_e"][1],
+    summary = {"envs": b, "agents": n, "reset_s": reset_s, "avg_throughput": throughput,
+               "k1b_launches": launches["serve_e"][1],
                "policy_b2_max_rel_err": max(errs), "policy_b2_decided": decided,
                "policy_b2_flips": flips, "ladder_world": idx, "ladder": ladder}
     print(f"serve_e (config E, {b} x {n}, maze256 bf16, greedy): " + json.dumps(summary),

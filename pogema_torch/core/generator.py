@@ -17,7 +17,8 @@ the JAX package's for the same key:
 * the bounded retry loop of ``generate_env``.
 
 Keys are int64 ``[B, 2]``; every function returns tensors with a leading
-``B``. The host syncs once per flood-fill sweep and once per retry.
+``B``. The host syncs once per flood-fill sweep and once per retry;
+``connected_components.sweeps`` and ``generate_env.tries`` count them.
 """
 
 from __future__ import annotations
@@ -107,7 +108,9 @@ def _segmented_min_scan(vals, boundary, dim: int, reverse: bool):
 @traced("pogema.generator.components")
 def connected_components(padded_grid) -> torch.Tensor:
     """i64[B, P*P]: for free cells the minimum flat index of their
-    4-connected component; P*P for obstacles."""
+    4-connected component; P*P for obstacles. Each sweep syncs the host
+    once; ``connected_components.sweeps`` counts them (the attribute sits
+    on the traced wrapper, which is what this module exports)."""
     b, p, _ = padded_grid.shape
     big = p * p
     obstacle = padded_grid.bool()
@@ -122,10 +125,14 @@ def connected_components(padded_grid) -> torch.Tensor:
 
     for _ in range(big):
         nxt = sweep(labels)
+        connected_components.sweeps += 1
         if torch.equal(nxt, labels):
             break
         labels = nxt
     return torch.where(obstacle, big, labels).reshape(b, big)
+
+
+connected_components.sweeps = 0
 
 
 # ---------------------------------------------------------------------------
@@ -293,6 +300,7 @@ def generate_env(cfg: StaticConfig, keys, fixed_map=None, fixed_agents_xy=None,
     whose draw cannot be placed is drawn again, up to ``_MAX_TRIES``
     times, each from the next split of its key; ``ok`` stays False for
     an env whose every try failed, and the caller must raise.
+    ``generate_env.tries`` counts the tries of that loop.
 
     ``fixed_map`` u8[S, S], ``fixed_*_xy`` i32[N, 2] (logical coords)
     and ``map_bank`` u8[K, S, S] are tensors on the keys' device.
@@ -310,6 +318,7 @@ def generate_env(cfg: StaticConfig, keys, fixed_map=None, fixed_agents_xy=None,
         pair = jr.split(k, 2)
         k, sub = pair[:, 0], pair[:, 1]
         res = _attempt(cfg, sub, *args)
+        generate_env.tries += 1
         if out is None:
             out = list(res[:4])
             ok = res[4]
@@ -322,3 +331,6 @@ def generate_env(cfg: StaticConfig, keys, fixed_map=None, fixed_agents_xy=None,
             break
         k = k[(~res[4]).nonzero().flatten()]
     return (*out, ok)
+
+
+generate_env.tries = 0
