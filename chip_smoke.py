@@ -30,7 +30,11 @@ result line):
      placement's bits at [1024, 74*74] and [4096, 74*74] (offsets 0 and
      above 2**32, fold_in of a scalar and per key), and timed at the
      select's and the placement's shapes beside its bound and the plain
-     version;
+     version; then k2: the 'priority' collision kernel K2 bit-equal to its
+     plain version (the sequential rule) and to the fixpoint at the shapes
+     of C.random, D.serve and E.serve, crowded, at one warp a block and
+     past shared memory, and timed at the three cells' shapes beside its
+     bound, the fixpoint and the plain loop;
   4. every collision system x on_target, cached and regen auto-reset: a
      small reset and 64 ``step_autoreset`` steps on the card must equal
      the same run on the CPU bit for bit (the CPU run is held against
@@ -40,7 +44,7 @@ result line):
      observations) reset on the card, then 3 timed trials of 256
      ``step_autoreset`` steps with actions from a CUDA generator, with
      its invariants checked and the kernels' launches counted (K1b twice
-     per step, K1 never, K7 once per step); then ``pomapf``, the same
+     per step, K1 never, K7 and K2 once per step, no fixpoint pass); then ``pomapf``, the same
      config with ``observation_type='POMAPF'`` for 64 steps, the
      full-width path that launches K1 (once per step);
   6. policy: the shipped ``.ckpt_rec128_ft`` weights (committed as
@@ -50,8 +54,8 @@ result line):
      the CPU's top-2 margin exceeds twice that;
   7. serve, the evaluation path at full width: ``make_policy_evaluator``
      on config D (1024 envs x 128 agents, LifeLong 64x64, r=5) with those
-     weights, 3 timed greedy episodes, K1b launched exactly once per step,
-     K7 10 times an episode and 2N + 5 times per placement try,
+     weights, 3 timed greedy episodes, K1b and K2 launched exactly once per
+     step, K7 10 times an episode and 2N + 5 times per placement try,
      invariants and metrics checked;
      then serve_e, config E (1024 envs x 256 agents, 128x128 worlds of
      the mixed random + maze pool, packed) served with the shipped
@@ -629,6 +633,89 @@ def phase_k7(device):
     return record
 
 
+def random_priority_inputs(b, n, p, device, seed, density=0.3, inactive=0.1):
+    """Inputs of the 'priority' rule at a cell's shapes: a border of
+    obstacles and ``density`` walls inside, N agents on distinct free
+    cells (the N best of random scores), a share of them inactive, actions
+    in [-1, 6) (values outside [0, 5) stay)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    grid = torch.ones(b, p, p, dtype=torch.uint8)
+    grid[:, 1:-1, 1:-1] = (torch.rand(b, p - 2, p - 2, generator=g) < density).to(torch.uint8)
+    scores = torch.rand(b, p * p, generator=g).masked_fill(grid.reshape(b, -1) != 0, -1.0)
+    cells = scores.topk(n, dim=1).indices
+    xy = torch.stack([cells // p, cells % p], -1).to(torch.int32)
+    active = torch.rand(b, n, generator=g) >= inactive
+    actions = torch.randint(-1, 6, (b, n), generator=g, dtype=torch.int32)
+    return tuple(t.to(device) for t in (grid, xy, active, actions))
+
+
+def phase_k2(device):
+    """K2, the 'priority' collision kernel, bit-equal to its plain version
+    (the sequential rule) and to the fixpoint of ``core/collisions.py`` on
+    the card, one launch each: at the shapes of C.random (4096 x 64,
+    P = 74, int32 and int64 actions), D.serve (1024 x 128, P = 74) and
+    E.serve (1024 x 256, P = 138), crowded (1024 x 256 on 20 x 20 grids),
+    one warp a block (2 x 2000) and past shared memory (2 x 6500). Then
+    timed at the three cells' shapes by graph replay and by CUDA events,
+    beside its bound and the plain fixpoint's time (host syncs included)
+    and the plain loop's. Returns the kernel record."""
+    import torch
+
+    from pogema_torch.core import collisions
+    from pogema_torch.ops import cuda_collisions as k2
+
+    p_cd = CONFIG_C["size"] + 2 * CONFIG_C["obs_radius"]
+    p_e = CONFIG_E["size"] + 2 * CONFIG_E["obs_radius"]
+    shapes = {"C.random": (NUM_ENVS_C, CONFIG_C["num_agents"], p_cd),
+              "D.serve": (NUM_ENVS_D, CONFIG_D["num_agents"], p_cd),
+              "E.serve": (NUM_ENVS_E, CONFIG_E["num_agents"], p_e)}
+    cases = {name: random_priority_inputs(*shape, device, seed=i)
+             for i, (name, shape) in enumerate(shapes.items())}
+    grid, xy, active, actions = cases["C.random"]
+    cases["C.random int64 actions"] = (grid, xy, active, actions.long())
+    cases["crowded 1024 x 256 on 20 x 20"] = random_priority_inputs(1024, 256, 20, device, 5,
+                                                                    density=0.05)
+    cases["one warp a block, 2 x 2000"] = random_priority_inputs(2, 2000, 60, device, 6, 0.1)
+    cases["scratch, 2 x 6500"] = random_priority_inputs(2, 6500, 100, device, 7, 0.1)
+    for label, args in cases.items():
+        before = k2.collisions_cuda.launches
+        got = k2.resolve_priority(*args)
+        torch.cuda.synchronize()
+        if k2.collisions_cuda.launches != before + 1:
+            raise AssertionError(f"K2 at {label} launched {k2.collisions_cuda.launches - before} "
+                                 f"times, expected 1")
+        if not torch.equal(got, k2.resolve_priority_ref(*args)):
+            raise AssertionError(f"K2 differs from its plain version at {label}")
+        if args[1].shape[1] <= 256 and not torch.equal(got, collisions.resolve_priority(*args)):
+            raise AssertionError(f"K2 differs from the fixpoint at {label}")
+        if not ((got != args[1]).any() and (got == args[1]).all(-1).any()):
+            raise AssertionError(f"at {label} no agent moved or every agent moved")
+    print(f"K2 bit-equal to its plain version at {len(cases)} shapes", flush=True)
+
+    saved = k2.collisions_cuda.launches
+    record = {"kernel": "K2 priority collisions"}
+    for label, (b, n, p) in shapes.items():
+        args = cases[label]
+        a_bytes = args[3].element_size()
+        nbytes = b * (n * (8 + 1 + a_bytes + 8) + min(32 * n, p * p))
+        rec = {"shape": [b, n, p], "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "device_ms": graph_time_ms(lambda: k2.resolve_priority(*args),
+                                          _graph_launches(b * n * 8)),
+               "ms": cuda_time_ms(lambda: k2.resolve_priority(*args)),
+               "fixpoint_ms": cuda_time_ms(lambda: collisions.resolve_priority(*args), iters=10),
+               "plain_ms": cuda_time_ms(lambda: k2.resolve_priority_ref(*args), iters=3, warmup=1)}
+        record[label] = rec
+        print(f"K2 at {label}'s [{b}, {n}], P = {p}: {rec['device_ms']:.4f} ms device time by graph "
+              f"replay ({rec['bound_ms'] / rec['device_ms']:.2f} of its bound, "
+              f"{rec['bound_ms']:.4f} ms by {nbytes} bytes), {rec['ms']:.4f} ms by events; the "
+              f"fixpoint {rec['fixpoint_ms']:.4f} ms by events, host syncs included; the plain "
+              f"loop {rec['plain_ms']:.4f} ms", flush=True)
+    k2.collisions_cuda.launches = saved
+    return record
+
+
 def _states_equal(a, b):
     from pogema_torch.interop import state_to_numpy
     import numpy as np
@@ -726,12 +813,13 @@ def phase_main(device):
 
     from pogema_torch import GridConfig, PogemaCore
     from pogema_torch.core import collisions
+    from pogema_torch.ops.cuda_collisions import collisions_cuda
     from pogema_torch.ops.cuda_threefry import threefry_cuda
 
     k1, kernel = _kernels()
     core = PogemaCore(GridConfig(seed=0, **CONFIG_C), num_envs=NUM_ENVS_C, maze=True,
                       device=device, obs_layout="packed")
-    k7_start = threefry_cuda.launches
+    k7_start, k2_start = threefry_cuda.launches, collisions_cuda.launches
     gen = torch.Generator(device=device).manual_seed(0)
     b, n = NUM_ENVS_C, CONFIG_C["num_agents"]
 
@@ -762,6 +850,11 @@ def phase_main(device):
         check_invariants(state, obs, core.cfg)
     launches = (k1.launches, kernel.launches)
     passes = collisions.fixpoint.passes
+    # K2 resolves each step's moves in one launch, with no fixpoint pass.
+    k2_steps = collisions_cuda.launches - k2_start
+    if k2_steps != total_steps or passes != 0:
+        raise AssertionError(f"K2 launched {k2_steps} times over {total_steps} steps, expected "
+                             f"one a step, and the fixpoint made {passes} passes, expected 0")
     # The cached select advances every env's key with one K7 split a step.
     k7_steps = threefry_cuda.launches - k7_start
     if k7_steps != total_steps:
@@ -778,7 +871,7 @@ def phase_main(device):
     sps = b * STEPS_PER_TRIAL / best
     summary = {"reset_s": reset_s, "env_steps_per_s": sps, "ms_per_step": best / STEPS_PER_TRIAL * 1e3,
                "steps": total_steps, "episodes_finished": finished,
-               "fixpoint_passes_per_step": passes / total_steps,
+               "k2_launches_per_step": k2_steps / total_steps,
                "k1_launches": launches[0], "k1b_launches": launches[1],
                "k7_launches_reset": k7_reset, "k7_launches_per_step": k7_steps / total_steps}
     print("main path (config C, cached, packed obs): " + json.dumps(summary), flush=True)
@@ -878,6 +971,7 @@ def phase_serve(device):
     from pogema_torch.interop import load_policy
     from pogema_torch.core.obs import packed_observation
     from pogema_torch.models.embed_actor_critic import embed_obs
+    from pogema_torch.ops.cuda_collisions import collisions_cuda
     from pogema_torch.ops.cuda_threefry import threefry_cuda
     from pogema_torch.parallel import make_policy_evaluator
 
@@ -894,11 +988,12 @@ def phase_serve(device):
     # attempt's split, the map's Bernoulli draw, the placement's split, the
     # agents' uniform and a fold_in and bits per agent.
     k7_fixed, k7_per_try = 2 + 1 + 7, 5 + 2 * n
-    times, throughput, k7_episodes = [], [], []
+    times, throughput, k7_episodes, k2_episodes = [], [], [], []
     k1.launches = kernel.launches = 0
     collisions.fixpoint.passes = 0
     for ep in range(SERVE_EPISODES):
-        before, k7_before = kernel.launches, threefry_cuda.launches
+        before, k7_before, k2_before = (kernel.launches, threefry_cuda.launches,
+                                        collisions_cuda.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = run(core.make_key(ep))
@@ -907,6 +1002,10 @@ def phase_serve(device):
         if kernel.launches - before != steps:
             raise AssertionError(f"episode {ep} launched K1b {kernel.launches - before} times, "
                                  f"expected {steps} (one per policy step)")
+        k2_episodes.append(collisions_cuda.launches - k2_before)
+        if k2_episodes[-1] != steps:
+            raise AssertionError(f"episode {ep} launched K2 {k2_episodes[-1]} times, expected "
+                                 f"{steps} (one per env step)")
         k7_episodes.append(threefry_cuda.launches - k7_before)
         tries, rest = divmod(k7_episodes[-1] - k7_fixed, k7_per_try)
         if tries < 1 or rest != 0:
@@ -920,6 +1019,8 @@ def phase_serve(device):
     launches, passes = (k1.launches, kernel.launches), collisions.fixpoint.passes
     if k1.launches != 0:
         raise AssertionError(f"serving launched K1 {k1.launches} times, expected 0")
+    if passes != 0:
+        raise AssertionError(f"serving made {passes} fixpoint passes, expected 0 (K2)")
 
     def host_ms(fn, iters=10):
         fn()
@@ -962,8 +1063,7 @@ def phase_serve(device):
                "avg_throughput": throughput, "k1_launches": launches[0],
                "k1b_launches": launches[1],
                "k1b_launches_per_episode": launches[1] / SERVE_EPISODES,
-               "k7_launches_per_episode": k7_episodes,
-               "fixpoint_passes_per_step": passes / (SERVE_EPISODES * steps),
+               "k7_launches_per_episode": k7_episodes, "k2_launches_per_episode": k2_episodes,
                "k1b_device_ms_config_d": k1b_ms, "k1b_bound_ms_config_d": k1b_bound_ms}
     print("serve (config D, 1024 x 128, rec128_ft bf16, greedy): " + json.dumps(summary), flush=True)
     return launches, summary
@@ -1252,6 +1352,7 @@ def phase_serve_e(device):
     from pogema_torch.core import step as step_mod
     from pogema_torch.interop import load_policy
     from pogema_torch.maps import mixed_pool
+    from pogema_torch.ops.cuda_collisions import collisions_cuda
     from pogema_torch.parallel import make_policy_evaluator
     from pogema_torch.toolbox import evaluate
 
@@ -1267,11 +1368,14 @@ def phase_serve_e(device):
     launches, throughput = {}, []
     k1.launches = kernel.launches = 0
     for ep in range(2):
-        before = kernel.launches
+        before, k2_before = kernel.launches, collisions_cuda.launches
         state, metrics = run(core.make_key(ep))
         if kernel.launches - before != steps:
             raise AssertionError(f"config-E episode {ep} launched K1b {kernel.launches - before} "
                                  f"times, expected {steps}")
+        if collisions_cuda.launches - k2_before != steps:
+            raise AssertionError(f"config-E episode {ep} launched K2 "
+                                 f"{collisions_cuda.launches - k2_before} times, expected {steps}")
         check_state_invariants(state)
         thr = metrics["avg_throughput"]
         if (thr.shape != (b,) or not all(torch.isfinite(v).all() for v in metrics.values())
@@ -2389,7 +2493,8 @@ def fixed_units(workload, seed, units) -> int:
     each kept episode's final rows and metrics, and apart from them its
     logits). ``fixpoint_passes_per_step`` averages over whatever units a
     timed window holds, so a faster checkout reads it over more and other
-    units; these counts compare two checkouts over the same ones. Run it
+    units; these counts and digests compare two checkouts over the same
+    ones (the passes read 0 where K2 resolves the collisions). Run it
     from the root of each checkout (copy this file there)."""
     import hashlib
 
@@ -2691,6 +2796,7 @@ def main() -> int:
                      CONFIG_C["obs_radius"])
     wide_out = phase("k1b_wide", phase_k1b_wide, device)
     record_k7 = phase("k7", phase_k7, device)
+    record_k2 = phase("k2", phase_k2, device)
     phase("devices_agree", phase_devices_agree, device)
     main_out = phase("main_path", phase_main, device)
     pomapf_out = phase("pomapf", phase_pomapf, device)
@@ -2711,7 +2817,7 @@ def main() -> int:
     mesh_nccl_out = phase("mesh_nccl", phase_mesh_nccl, device)
 
     shapes = phase("k1_shapes", phase_k1_shapes, device)
-    if failed or None in (record, record_b, record_k7, wide_out, main_out, pomapf_out, serve_out,
+    if failed or None in (record, record_b, record_k7, record_k2, wide_out, main_out, pomapf_out, serve_out,
                           serve_e_out, train_out, train_ff_out, shapes, rim_env_out,
                           rim_vector_out, mesh_one_out, mesh_gloo_out, mesh_nccl_out):
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
@@ -2762,7 +2868,9 @@ def main() -> int:
     print(card, flush=True)
     record_k7["launches_by_path"] = {"main_path_per_step": main_out[1]["k7_launches_per_step"],
                                      "serve_per_episode": serve_out[1]["k7_launches_per_episode"]}
-    print(json.dumps({"kernels": [record, record_b, record_k7]}))
+    record_k2["launches_by_path"] = {"main_path_per_step": main_out[1]["k2_launches_per_step"],
+                                     "serve_per_episode": serve_out[1]["k2_launches_per_episode"]}
+    print(json.dumps({"kernels": [record, record_b, record_k7, record_k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -20,7 +20,10 @@ Semantics (see the JAX module for the derivations):
   block others (chains), iterated to the fixpoint.
 
 The fixpoints check convergence on the host once per pass (one device
-sync per pass); the collision kernel on the roadmap removes that.
+sync per pass). On a CUDA device ``resolve_moves`` hands ``priority`` to
+K2 (``ops/cuda_collisions.py``), which computes the sequential rule in one
+launch with no sync; the fixpoint stays the CPU's path, where it is
+faster than a loop over the agents, and the depth diagnostic's.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..grid_config import MOVES, StaticConfig
+from ..ops import cuda_collisions
 from ..utils.profiling import traced
 
 
@@ -172,6 +176,11 @@ _RESOLVERS = {
 @traced("pogema.collisions")
 def resolve_moves(cfg: StaticConfig, obstacles, agents_xy, active, actions):
     """New positions i32[B, N, 2] under ``cfg.collision_system``."""
+    if cfg.collision_system == "priority" and agents_xy.is_cuda:
+        if actions.dtype != torch.int64:
+            actions = actions.to(torch.int32)
+        return cuda_collisions.resolve_priority(obstacles.contiguous(), agents_xy.contiguous(),
+                                                active.contiguous(), actions.contiguous())
     if cfg.num_agents == 1:
         # One agent cannot conflict with another under any system.
         return propose(obstacles, agents_xy, active, actions)[0]
