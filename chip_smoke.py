@@ -31,20 +31,21 @@ result line):
      above 2**32, fold_in of a scalar and per key), and timed at the
      select's and the placement's shapes beside its bound and the plain
      version; then k2: the 'priority' collision kernel K2 bit-equal to its
-     plain version (the sequential rule) and to the fixpoint at the shapes
+     plain version (the fixpoint of ``ops/collisions.py``) at the shapes
      of C.random, D.serve and E.serve, crowded, at one warp a block and
      past shared memory, and timed at the three cells' shapes beside its
-     bound, the fixpoint and the plain loop;
+     bound and the fixpoint;
   4. every collision system x on_target, cached and regen auto-reset: a
      small reset and 64 ``step_autoreset`` steps on the card must equal
      the same run on the CPU bit for bit (the CPU run is held against
      the JAX package by the tests);
   5. the main path: config C (4096 envs x 64 agents, 64x64 mazes, obs
      radius 5, priority collisions, 'finish', cached auto-reset, packed
-     observations) reset on the card, then 3 timed trials of 256
-     ``step_autoreset`` steps with actions from a CUDA generator, with
-     its invariants checked and the kernels' launches counted (K1b twice
-     per step, K1 never, K7 and K2 once per step, no fixpoint pass); then ``pomapf``, the same
+     observations) reset on the card, then 768 ``step_autoreset`` steps
+     with actions from a CUDA generator, with its invariants checked and
+     the kernels' launches counted (K1b twice per step, K1 never, K7 and
+     K2 once per step, no fixpoint pass; the benchmark's cell ``C.random``
+     times such steps); then ``pomapf``, the same
      config with ``observation_type='POMAPF'`` for 64 steps, the
      full-width path that launches K1 (once per step);
   6. policy: the shipped ``.ckpt_rec128_ft`` weights (committed as
@@ -54,9 +55,10 @@ result line):
      the CPU's top-2 margin exceeds twice that;
   7. serve, the evaluation path at full width: ``make_policy_evaluator``
      on config D (1024 envs x 128 agents, LifeLong 64x64, r=5) with those
-     weights, 3 timed greedy episodes, K1b and K2 launched exactly once per
-     step, K7 10 times an episode and 2N + 5 times per placement try,
-     invariants and metrics checked;
+     weights, 3 greedy episodes (the benchmark's cell ``D.serve`` times
+     such episodes), K1b and K2 launched exactly once per step, K7 10
+     times an episode and 2N + 5 times per placement try, invariants and
+     metrics checked;
      then serve_e, config E (1024 envs x 256 agents, 128x128 worlds of
      the mixed random + maze pool, packed) served with the shipped
      ``.ckpt_maze256`` weights (``weights/maze256.npz``) in bf16: a
@@ -159,8 +161,7 @@ K7_OPS_PER_COUNTER = 80
 CONFIG_C = dict(size=64, num_agents=64, obs_radius=5, max_episode_steps=128,
                 collision_system="priority", on_target="finish")
 NUM_ENVS_C = 4096
-STEPS_PER_TRIAL = 256
-TRIALS = 3
+MAIN_STEPS = 768
 
 # Config D (README): LifeLong 64x64, 128 agents, r=5, served with the
 # shipped .ckpt_rec128_ft weights.
@@ -653,17 +654,17 @@ def random_priority_inputs(b, n, p, device, seed, density=0.3, inactive=0.1):
 
 def phase_k2(device):
     """K2, the 'priority' collision kernel, bit-equal to its plain version
-    (the sequential rule) and to the fixpoint of ``core/collisions.py`` on
-    the card, one launch each: at the shapes of C.random (4096 x 64,
-    P = 74, int32 and int64 actions), D.serve (1024 x 128, P = 74) and
-    E.serve (1024 x 256, P = 138), crowded (1024 x 256 on 20 x 20 grids),
-    one warp a block (2 x 2000) and past shared memory (2 x 6500). Then
-    timed at the three cells' shapes by graph replay and by CUDA events,
-    beside its bound and the plain fixpoint's time (host syncs included)
-    and the plain loop's. Returns the kernel record."""
+    (the fixpoint of ``ops/collisions.py``) on the card, one launch each:
+    at the shapes of C.random (4096 x 64, P = 74, int32 and int64
+    actions), D.serve (1024 x 128, P = 74) and E.serve (1024 x 256,
+    P = 138), crowded (1024 x 256 on 20 x 20 grids), one warp a block
+    (2 x 2000) and past shared memory (2 x 6500). Then timed at the three
+    cells' shapes by graph replay and by CUDA events, beside its bound and
+    the plain fixpoint's time (host syncs included). Returns the kernel
+    record."""
     import torch
 
-    from pogema_torch.core import collisions
+    from pogema_torch.ops import collisions as plain
     from pogema_torch.ops import cuda_collisions as k2
 
     p_cd = CONFIG_C["size"] + 2 * CONFIG_C["obs_radius"]
@@ -686,10 +687,8 @@ def phase_k2(device):
         if k2.collisions_cuda.launches != before + 1:
             raise AssertionError(f"K2 at {label} launched {k2.collisions_cuda.launches - before} "
                                  f"times, expected 1")
-        if not torch.equal(got, k2.resolve_priority_ref(*args)):
+        if not torch.equal(got, plain.resolve_priority(*args)):
             raise AssertionError(f"K2 differs from its plain version at {label}")
-        if args[1].shape[1] <= 256 and not torch.equal(got, collisions.resolve_priority(*args)):
-            raise AssertionError(f"K2 differs from the fixpoint at {label}")
         if not ((got != args[1]).any() and (got == args[1]).all(-1).any()):
             raise AssertionError(f"at {label} no agent moved or every agent moved")
     print(f"K2 bit-equal to its plain version at {len(cases)} shapes", flush=True)
@@ -704,14 +703,12 @@ def phase_k2(device):
                "device_ms": graph_time_ms(lambda: k2.resolve_priority(*args),
                                           _graph_launches(b * n * 8)),
                "ms": cuda_time_ms(lambda: k2.resolve_priority(*args)),
-               "fixpoint_ms": cuda_time_ms(lambda: collisions.resolve_priority(*args), iters=10),
-               "plain_ms": cuda_time_ms(lambda: k2.resolve_priority_ref(*args), iters=3, warmup=1)}
+               "fixpoint_ms": cuda_time_ms(lambda: plain.resolve_priority(*args), iters=10)}
         record[label] = rec
         print(f"K2 at {label}'s [{b}, {n}], P = {p}: {rec['device_ms']:.4f} ms device time by graph "
               f"replay ({rec['bound_ms'] / rec['device_ms']:.2f} of its bound, "
               f"{rec['bound_ms']:.4f} ms by {nbytes} bytes), {rec['ms']:.4f} ms by events; the "
-              f"fixpoint {rec['fixpoint_ms']:.4f} ms by events, host syncs included; the plain "
-              f"loop {rec['plain_ms']:.4f} ms", flush=True)
+              f"fixpoint {rec['fixpoint_ms']:.4f} ms by events, host syncs included", flush=True)
     k2.collisions_cuda.launches = saved
     return record
 
@@ -825,55 +822,44 @@ def phase_main(device):
 
     k1.launches = kernel.launches = 0
     collisions.fixpoint.passes = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     state, obs = core.reset(0)
-    torch.cuda.synchronize()
-    reset_s = time.perf_counter() - t0
     if kernel.launches != 1:
         raise AssertionError(f"reset launched K1b {kernel.launches} times, expected 1")
     check_invariants(state, obs, core.cfg)
     init = state
     k7_reset = threefry_cuda.launches - k7_start
     k7_start = threefry_cuda.launches
-    best, done_envs, total_steps = float("inf"), 0, 0
-    for trial in range(TRIALS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(STEPS_PER_TRIAL):
-            actions = torch.randint(0, 5, (b, n), device=device, generator=gen, dtype=torch.int32)
-            state, obs, res, done, _ = core.step_autoreset(state, init, actions)
-            done_envs += done
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-        total_steps += STEPS_PER_TRIAL
-        check_invariants(state, obs, core.cfg)
+    done_envs = 0
+    for t in range(MAIN_STEPS):
+        actions = torch.randint(0, 5, (b, n), device=device, generator=gen, dtype=torch.int32)
+        state, obs, res, done, _ = core.step_autoreset(state, init, actions)
+        done_envs += done
+        if (t + 1) % 256 == 0:
+            check_invariants(state, obs, core.cfg)
     launches = (k1.launches, kernel.launches)
     passes = collisions.fixpoint.passes
     # K2 resolves each step's moves in one launch, with no fixpoint pass.
     k2_steps = collisions_cuda.launches - k2_start
-    if k2_steps != total_steps or passes != 0:
-        raise AssertionError(f"K2 launched {k2_steps} times over {total_steps} steps, expected "
+    if k2_steps != MAIN_STEPS or passes != 0:
+        raise AssertionError(f"K2 launched {k2_steps} times over {MAIN_STEPS} steps, expected "
                              f"one a step, and the fixpoint made {passes} passes, expected 0")
     # The cached select advances every env's key with one K7 split a step.
     k7_steps = threefry_cuda.launches - k7_start
-    if k7_steps != total_steps:
-        raise AssertionError(f"K7 launched {k7_steps} times over {total_steps} steps, expected "
+    if k7_steps != MAIN_STEPS:
+        raise AssertionError(f"K7 launched {k7_steps} times over {MAIN_STEPS} steps, expected "
                              f"one a step")
     # The pre-reset and the post-reset observation of a step are one K1b
     # launch each; the packed layout does not go through K1.
-    if launches != (0, 1 + 2 * total_steps):
-        raise AssertionError(f"(K1, K1b) launched {launches} times over reset + {total_steps} "
-                             f"steps, expected (0, {1 + 2 * total_steps})")
+    if launches != (0, 1 + 2 * MAIN_STEPS):
+        raise AssertionError(f"(K1, K1b) launched {launches} times over reset + {MAIN_STEPS} "
+                             f"steps, expected (0, {1 + 2 * MAIN_STEPS})")
     finished = int(done_envs.sum())
     if finished == 0:
         raise AssertionError("no env finished an episode: auto-reset never fired")
-    sps = b * STEPS_PER_TRIAL / best
-    summary = {"reset_s": reset_s, "env_steps_per_s": sps, "ms_per_step": best / STEPS_PER_TRIAL * 1e3,
-               "steps": total_steps, "episodes_finished": finished,
-               "k2_launches_per_step": k2_steps / total_steps,
+    summary = {"steps": MAIN_STEPS, "episodes_finished": finished,
+               "k2_launches_per_step": k2_steps / MAIN_STEPS,
                "k1_launches": launches[0], "k1b_launches": launches[1],
-               "k7_launches_reset": k7_reset, "k7_launches_per_step": k7_steps / total_steps}
+               "k7_launches_reset": k7_reset, "k7_launches_per_step": k7_steps / MAIN_STEPS}
     print("main path (config C, cached, packed obs): " + json.dumps(summary), flush=True)
     return launches, summary
 
@@ -958,19 +944,14 @@ def _policy_vs_cpu(device, weights, states):
 def phase_serve(device):
     """This slice's path at full width: make_policy_evaluator on config D
     (1024 envs x 128 agents, 64x64, r=5, LifeLong) with the shipped
-    rec128_ft weights in bf16, 3 timed greedy episodes (each with its
-    reset). Then, outside the counted run, host-clock times of the reset,
-    the policy forward and its parts, the env step, the done test and
-    freeze, and K1b at config-D shapes. Returns ((K1, K1b) launches, summary);
-    ``loop_ms_per_step`` is (best episode - reset) / steps."""
+    rec128_ft weights in bf16, 3 greedy episodes (each with its reset;
+    the benchmark's cell ``D.serve`` times such episodes) with their
+    launches counted. Returns ((K1, K1b) launches, summary)."""
     import torch
 
     from pogema_torch import GridConfig, PogemaCore
-    from pogema_torch.core import collisions, step as step_mod
-    from pogema_torch.core.api import select_state
+    from pogema_torch.core import collisions
     from pogema_torch.interop import load_policy
-    from pogema_torch.core.obs import packed_observation
-    from pogema_torch.models.embed_actor_critic import embed_obs
     from pogema_torch.ops.cuda_collisions import collisions_cuda
     from pogema_torch.ops.cuda_threefry import threefry_cuda
     from pogema_torch.parallel import make_policy_evaluator
@@ -988,17 +969,13 @@ def phase_serve(device):
     # attempt's split, the map's Bernoulli draw, the placement's split, the
     # agents' uniform and a fold_in and bits per agent.
     k7_fixed, k7_per_try = 2 + 1 + 7, 5 + 2 * n
-    times, throughput, k7_episodes, k2_episodes = [], [], [], []
+    throughput, k7_episodes, k2_episodes = [], [], []
     k1.launches = kernel.launches = 0
     collisions.fixpoint.passes = 0
     for ep in range(SERVE_EPISODES):
         before, k7_before, k2_before = (kernel.launches, threefry_cuda.launches,
                                         collisions_cuda.launches)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         state, metrics = run(core.make_key(ep))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
         if kernel.launches - before != steps:
             raise AssertionError(f"episode {ep} launched K1b {kernel.launches - before} times, "
                                  f"expected {steps} (one per policy step)")
@@ -1021,50 +998,10 @@ def phase_serve(device):
         raise AssertionError(f"serving launched K1 {k1.launches} times, expected 0")
     if passes != 0:
         raise AssertionError(f"serving made {passes} fixpoint passes, expected 0 (K2)")
-
-    def host_ms(fn, iters=10):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / iters * 1e3
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st, _ = core.reset(core.make_key(9), with_obs=False)
-    torch.cuda.synchronize()
-    reset_s = time.perf_counter() - t0
-    h = model.initial_carry((b, n))
-    acts = torch.zeros(b, n, dtype=torch.int32, device=device)
-    args = (st.obstacles, st.agents_xy, st.targets_xy, st.active)
-    obs = packed_observation(model.window, *args)
-    bias = model.embed_bias.to(model.dtype)
-    e = embed_obs(model.embed_kernel, bias, model.dtype, obs)
-    with torch.no_grad():
-        policy_ms = host_ms(lambda: model.step_from_state(*args, h))
-        parts = {"packed_obs": host_ms(lambda: packed_observation(model.window, *args)),
-                 "embed_gemm": host_ms(lambda: embed_obs(model.embed_kernel, bias, model.dtype, obs)),
-                 "gru_and_head": host_ms(lambda: model._finish(h, e))}
-    step_ms = host_ms(lambda: step_mod.step(core.cfg, st, acts, with_obs=False))
-    done_select_ms = host_ms(lambda: select_state(step_mod.episode_done(core.cfg, st), st, st))
-    w = core.cfg.window
-    k1b_ms = graph_time_ms(lambda: kernel(*args, w))
-    kernel.launches = launches[1]
-    p = st.obstacles.shape[-1]
-    k1b_bound_ms = (b * p * p + b * n * 17 + b * n * 3 * w * w * 4) / HBM_BYTES_PER_S * 1e3
-    best = min(times)
-    summary = {"episode_s": times, "env_steps_per_s": b * steps / best,
-               "ms_per_step": best / steps * 1e3, "reset_s": reset_s,
-               "loop_ms_per_step": (best - reset_s) / steps * 1e3,
-               "policy_ms_per_step": policy_ms, "policy_parts_ms": parts,
-               "env_step_ms": step_ms, "done_and_freeze_ms": done_select_ms,
-               "avg_throughput": throughput, "k1_launches": launches[0],
+    summary = {"avg_throughput": throughput, "k1_launches": launches[0],
                "k1b_launches": launches[1],
                "k1b_launches_per_episode": launches[1] / SERVE_EPISODES,
-               "k7_launches_per_episode": k7_episodes, "k2_launches_per_episode": k2_episodes,
-               "k1b_device_ms_config_d": k1b_ms, "k1b_bound_ms_config_d": k1b_bound_ms}
+               "k7_launches_per_episode": k7_episodes, "k2_launches_per_episode": k2_episodes}
     print("serve (config D, 1024 x 128, rec128_ft bf16, greedy): " + json.dumps(summary), flush=True)
     return launches, summary
 

@@ -1,8 +1,9 @@
 """The threefry2x32-20 hash in CUDA for Hopper: K7.
 
 The kernel lives in ``csrc/threefry.cu`` (design and bound in its source
-note), is built with nvcc at first use and called through ctypes. It
-serves ``core/random.py``'s two hash sites in one launch each:
+note), is built with nvcc at first use and launched through
+``ops/launch.py``. It serves ``core/random.py``'s two hash sites in one
+launch each:
 
 * :func:`split` (``jax.random.split``) and :func:`bits` (``jax.random.bits``,
   under ``uniform``, ``gumbel``, ``categorical``, ``bernoulli`` and
@@ -23,39 +24,23 @@ launches. Every output holds u32 values in int64, as the plain version's.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from . import build
+from . import launch
+from .launch import I32, I64, PTR, U64
 from .threefry import M32, bits_ref, fold_in_ref, split_ref
 
 # Output layouts of the kernel (csrc/threefry.cu).
 SPLIT, BITS, FOLD_IN = 0, 1, 2
-
-_fns: dict = {}
-
-
-def _lib() -> dict:
-    if not _fns:
-        fn = build.load("threefry").pogema_threefry
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
-            ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns["pogema_threefry"] = fn
-    return _fns
+_KEYS = (torch.int64,)
 
 
 def _check_keys(keys: torch.Tensor, offset: int = 0) -> None:
-    if keys.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"keys must lie on the CPU or a CUDA device, got {keys.device}")
-    if keys.dtype != torch.int64:
-        raise TypeError(f"keys must be int64, got {keys.dtype}")
+    launch.check(("keys", keys, _KEYS))
     if keys.dim() < 1 or keys.shape[-1] != 2:
         raise ValueError(f"keys must be [..., 2], got {tuple(keys.shape)}")
-    if not keys.is_contiguous():
-        raise ValueError("keys must be contiguous")
     if offset < 0:
         raise ValueError(f"offset must be at least 0, got {offset}")
 
@@ -68,17 +53,13 @@ def threefry_cuda(keys: torch.Tensor, out: torch.Tensor, numel: int, layout: int
     rows = keys.numel() // 2
     if rows * numel == 0:  # nothing to launch (and nothing counted)
         return out
-    fn = _lib()["pogema_threefry"]
-    with torch.cuda.device(keys.device):
-        rc = fn(keys.data_ptr(), None if data is None else data.data_ptr(), out.data_ptr(),
-                rows, numel, offset, layout, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"threefry_kernel launch failed: CUDA error {rc}")
-    threefry_cuda.launches += 1
+    _K7(keys.device, keys.data_ptr(), None if data is None else data.data_ptr(), out.data_ptr(),
+        rows, numel, offset, layout)
     return out
 
 
-threefry_cuda.launches = 0
+_K7 = launch.Kernel("threefry", "pogema_threefry", (PTR,) * 3 + (I64,) * 2 + (U64, I32),
+                    "threefry_kernel", threefry_cuda)
 
 
 def split(keys: torch.Tensor, num: int, offset: int = 0) -> torch.Tensor:
@@ -96,7 +77,7 @@ def bits(keys: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     of counters ``offset + j``, j the flat index of an element of
     ``shape``."""
     _check_keys(keys, offset)
-    shape = tuple(int(d) for d in shape)
+    shape = tuple(map(int, shape))
     if keys.device.type == "cpu":
         return bits_ref(keys, shape, offset)
     out = torch.empty((*keys.shape[:-1], *shape), dtype=torch.int64, device=keys.device)
@@ -114,7 +95,8 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
         if data.dim() == 0 and keys.device.type == "cuda":
             # The counter words (0, data mod 2**32) are split's counter
             # data mod 2**32: one launch, no copy of data to the card.
-            return split(keys, 1, int(data) & M32)[..., 0, :]
+            out = torch.empty((*batch, 1, 2), dtype=torch.int64, device=keys.device)
+            return threefry_cuda(keys, out, 1, SPLIT, int(data) & M32)[..., 0, :]
         data = data.to(keys.device)
     if data.device != keys.device:
         raise ValueError(f"data must lie on the keys' device {keys.device}, got {data.device}")

@@ -1,7 +1,7 @@
 """The observation kernels, in CUDA for Hopper: K1 and K1b.
 
 Both live in ``csrc/windows.cu`` (design and bounds in its source note),
-are built with nvcc at first use and called through ctypes.
+are built with nvcc at first use and launched through ``ops/launch.py``.
 
 ``extract_windows_packed(grid, xy, w)`` (K1) is the port of the Pallas
 TPU kernel ``pogema_tpu/ops/pallas_windows.py::extract_windows_packed``:
@@ -28,11 +28,10 @@ picks the chunk from B, M and the card's SM count.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import build
+from . import launch
+from .launch import I32, PTR
 from .windows import extract_windows_packed_ref, packed_lanes, packed_observation_ref
 
 # Launch parameters read off the ``k1_shapes`` phase of ``chip_smoke.py``
@@ -51,39 +50,27 @@ K1B_MAX_AGENTS = 65535
 # resident block (CUDA occupancy rules for compute capability 9.0).
 SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 233472, 1024
 
-_fns: dict = {}
-_devices: dict = {}  # device index -> (functions, SM count, most shared memory of a block)
-
-
-def _lib() -> dict:
-    if not _fns:
-        lib = build.load("windows")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name, args in (("pogema_windows_init", []),
-                           ("pogema_windows_max_smem", []),
-                           ("pogema_packed_windows_smem", [i32, i32]),
-                           ("pogema_packed_observation_smem", [i32] * 4),
-                           ("pogema_packed_windows", [ptr] * 3 + [i32] * 6 + [ptr]),
-                           ("pogema_packed_observation", [ptr] * 5 + [i32] * 6 + [ptr])):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = args, i32
-            _fns[name] = fn
-    return _fns
+_U8, _I32, _BOOL = (torch.uint8,), (torch.int32,), (torch.bool,)
+_fns: dict = {}  # the shared-memory queries of csrc/windows.cu, bound by _prepare
+_devices: dict = {}  # device index -> (_fns, SM count, most shared memory of a block)
 
 
 def _prepare(device):
-    """(the library's functions, SM count, most dynamic shared memory of a
-    block) for ``device``, which is made ready for launches the first
+    """(the shared-memory queries, SM count, most dynamic shared memory of
+    a block) for ``device``, which is made ready for launches the first
     time: large dynamic shared memory allowed, once and not per launch."""
     ready = _devices.get(device.index)
     if ready is None:
-        fns = _lib()
+        init = launch.bind("windows", "pogema_windows_init")
         with torch.cuda.device(device):
-            rc = fns["pogema_windows_init"]()
+            rc = init()
         if rc != 0:
             raise RuntimeError(f"cudaFuncSetAttribute failed: CUDA error {rc}")
-        ready = (fns, torch.cuda.get_device_properties(device).multi_processor_count,
-                 fns["pogema_windows_max_smem"]())
+        for name, args in (("pogema_packed_windows_smem", (I32,) * 2),
+                           ("pogema_packed_observation_smem", (I32,) * 4)):
+            _fns[name] = launch.bind("windows", name, *args)
+        ready = (_fns, torch.cuda.get_device_properties(device).multi_processor_count,
+                 launch.bind("windows", "pogema_windows_max_smem")())
         _devices[device.index] = ready
     return ready
 
@@ -133,28 +120,16 @@ def observation_fill(p: int, w: int, n: int) -> int:
     return max(1, min(K1B_FILL, SMEM_PER_SM // block))
 
 
-def _check_common(grid, per_agent, w: int):
-    """Refuse what neither kernel takes. ``per_agent``: (name, tensor,
-    dtype, trailing shape) of each [B, N, ...] input."""
-    if grid.device.type not in ("cpu", "cuda") or any(t.device != grid.device
-                                                      for _, t, _, _ in per_agent):
-        raise ValueError("all inputs must lie on one device, the CPU or a CUDA device, got grid: "
-                         f"{grid.device}, " + ", ".join(f"{k}: {t.device}" for k, t, _, _ in per_agent))
-    if grid.dtype != torch.uint8:
-        raise TypeError(f"grid must be uint8, got {grid.dtype}")
+def _check_shapes(grid, per_agent, w: int):
+    """Refuse the shapes neither kernel takes. ``per_agent``: (name,
+    tensor, trailing shape) of each [B, N, ...] input."""
     if grid.dim() != 3 or grid.shape[1] != grid.shape[2]:
         raise ValueError(f"grid must be [B, P, P], got {tuple(grid.shape)}")
-    if not grid.is_contiguous():
-        raise ValueError("grid must be contiguous")
     lead = (grid.shape[0], per_agent[0][1].shape[1] if per_agent[0][1].dim() > 1 else -1)
-    for name, t, dtype, tail in per_agent:
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    for name, t, tail in per_agent:
         if tuple(t.shape) != lead + tail:
             raise ValueError(f"{name} must be [B, N{''.join(f', {d}' for d in tail)}] with "
                              f"B={lead[0]} and the same N as the others, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if w < 1 or w % 2 == 0:
         raise ValueError(f"window must be odd and positive, got {w}")
 
@@ -172,20 +147,15 @@ def _launch_windows(grid, xy, w: int, mc: int) -> torch.Tensor:
         raise ValueError(f"a {p}x{p} grid with {mc} centres per block exceeds the 227 KB of "
                          f"shared memory of a block")
     out = torch.empty(b, m, lanes, dtype=torch.float32, device=grid.device)
-    with torch.cuda.device(grid.device):
-        rc = fns["pogema_packed_windows"](
-            grid.data_ptr(), xy.data_ptr(), out.data_ptr(), b, p, m, w, lanes, mc,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"packed_windows_kernel launch failed: CUDA error {rc}")
-    extract_windows_packed.launches += 1
+    _K1(grid.device, grid.data_ptr(), xy.data_ptr(), out.data_ptr(), b, p, m, w, lanes, mc)
     return out
 
 
 def extract_windows_packed(grid: torch.Tensor, xy: torch.Tensor, w: int) -> torch.Tensor:
     """K1. grid: u8[B, P, P], xy: i32[B, M, 2], w: odd window size.
     Returns f32[B, M, packed_lanes(w)]."""
-    _check_common(grid, (("xy", xy, torch.int32, (2,)),), w)
+    launch.check(("grid", grid, _U8), ("xy", xy, _I32))
+    _check_shapes(grid, (("xy", xy, (2,)),), w)
     if grid.device.type == "cpu":
         return extract_windows_packed_ref(grid, xy, w)
     b, p, _ = grid.shape
@@ -197,7 +167,8 @@ def extract_windows_packed(grid: torch.Tensor, xy: torch.Tensor, w: int) -> torc
                                                           K1_AMORTISE, K1_FILL))
 
 
-extract_windows_packed.launches = 0
+_K1 = launch.Kernel("windows", "pogema_packed_windows", (PTR,) * 3 + (I32,) * 6,
+                    "packed_windows_kernel", extract_windows_packed)
 
 
 def _launch_observation(grid, agents_xy, targets_xy, active, w: int, mc: int) -> torch.Tensor:
@@ -213,13 +184,8 @@ def _launch_observation(grid, agents_xy, targets_xy, active, w: int, mc: int) ->
         raise ValueError(f"a {p}x{p} grid with {mc} agents per block exceeds the 227 KB of "
                          f"shared memory of a block")
     out = torch.empty(b, n, 3 * w * w, dtype=torch.float32, device=grid.device)
-    with torch.cuda.device(grid.device):
-        rc = fns["pogema_packed_observation"](
-            grid.data_ptr(), agents_xy.data_ptr(), targets_xy.data_ptr(), active.data_ptr(),
-            out.data_ptr(), b, p, n, w, mc, int(wide), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"packed_observation_kernel launch failed: CUDA error {rc}")
-    packed_observation_cuda.launches += 1
+    _K1B(grid.device, grid.data_ptr(), agents_xy.data_ptr(), targets_xy.data_ptr(),
+         active.data_ptr(), out.data_ptr(), b, p, n, w, mc, int(wide))
     return out
 
 
@@ -237,9 +203,10 @@ def packed_observation_cuda(grid: torch.Tensor, agents_xy: torch.Tensor,
     neighbour that is outside as well. Up to 255 agents per env a cell's
     count has 8 bits, above that 16 (:func:`observation_wide`): on the
     card more than 65535 agents per env are refused."""
-    _check_common(grid, (("agents_xy", agents_xy, torch.int32, (2,)),
-                         ("targets_xy", targets_xy, torch.int32, (2,)),
-                         ("active", active, torch.bool, ())), w)
+    launch.check(("grid", grid, _U8), ("agents_xy", agents_xy, _I32),
+                 ("targets_xy", targets_xy, _I32), ("active", active, _BOOL))
+    _check_shapes(grid, (("agents_xy", agents_xy, (2,)), ("targets_xy", targets_xy, (2,)),
+                         ("active", active, ())), w)
     if grid.device.type == "cpu":
         return packed_observation_ref(grid, agents_xy, targets_xy, active, w)
     b, p, _ = grid.shape
@@ -258,4 +225,5 @@ def packed_observation_cuda(grid: torch.Tensor, agents_xy: torch.Tensor,
                                                  observation_fill(p, w, n), multiple=4))
 
 
-packed_observation_cuda.launches = 0
+_K1B = launch.Kernel("windows", "pogema_packed_observation", (PTR,) * 5 + (I32,) * 6,
+                     "packed_observation_kernel", packed_observation_cuda)

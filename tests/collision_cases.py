@@ -1,8 +1,12 @@
 """'priority' collision scenarios for the tests of K2 and its plain
 version: numpy inputs, shared by the CPU tests (against the JAX package)
-and the card tests (which import no JAX)."""
+and the card tests (which import no JAX), and the tests' oracle, the
+sequential rule as a loop over the agents."""
 
 import numpy as np
+import torch
+
+from pogema_torch.grid_config import MOVES
 
 AGENTS = (1, 2, 31, 32, 33, 64, 128, 255, 256, 257)
 ENVS = 3
@@ -103,8 +107,6 @@ def random_inputs(b, n, p, seed, density=0.3, inactive=0.1, actions=(-1, 6)):
     obstacles and `density` walls inside, N agents on distinct free cells
     (the N best of random scores), a share of them inactive, and actions
     drawn from `actions` (values outside [0, 5) stay)."""
-    import torch
-
     g = torch.Generator().manual_seed(seed)
     grid = torch.ones(b, p, p, dtype=torch.uint8)
     grid[:, 1:-1, 1:-1] = (torch.rand(b, p - 2, p - 2, generator=g) < density).to(torch.uint8)
@@ -114,3 +116,34 @@ def random_inputs(b, n, p, seed, density=0.3, inactive=0.1, actions=(-1, 6)):
     active = torch.rand(b, n, generator=g) >= inactive
     acts = torch.randint(*actions, (b, n), generator=g, dtype=torch.int32)
     return grid, xy, active, acts
+
+
+def sequential_priority(obstacles, agents_xy, active, actions):
+    """The 'priority' rule as stated: agents in index order, each step
+    batched over the envs; agent i moves iff it is active, its action is a
+    move in [1, 5), the cell is free of obstacles, and no active agent
+    holds the cell at i's turn (earlier agents on their new cells, later
+    ones on their old cells). Tensors as K2's wrapper takes them; returns
+    i32[B, N, 2]."""
+    b, p, _ = obstacles.shape
+    n = agents_xy.shape[1]
+    act = actions.long()
+    known = (act >= 0) & (act < len(MOVES))
+    delta = torch.tensor(MOVES, dtype=torch.int32, device=act.device)[act.clamp(0, len(MOVES) - 1)]
+    delta = delta * known[..., None].to(torch.int32)
+    proposed = agents_xy + delta
+    px, py = proposed[..., 0].long(), proposed[..., 1].long()
+    inside = (px >= 0) & (px < p) & (py >= 0) & (py < p)
+    cell = px.clamp(0, p - 1) * p + py.clamp(0, p - 1)
+    hit = inside & (obstacles.reshape(b, p * p).gather(1, cell) != 0)
+    cur = agents_xy[..., 0].long() * p + agents_xy[..., 1].long()
+    des = cur + delta[..., 0].long() * p + delta[..., 1].long()
+    moving = active & ~hit & (des != cur)
+    # held[b, j]: the cell agent j holds now; none while inactive.
+    held = torch.where(active, cur, torch.iinfo(torch.int64).min)
+    moved = torch.zeros_like(moving)
+    for i in range(n):
+        free = ~(held == des[:, i, None]).any(dim=1)
+        moved[:, i] = moving[:, i] & free
+        held[:, i] = torch.where(moved[:, i], des[:, i], held[:, i])
+    return torch.where(moved[..., None], proposed, agents_xy)

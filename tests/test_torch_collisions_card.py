@@ -1,24 +1,25 @@
 """K2, the 'priority' collision kernel (``ops/cuda_collisions.py``,
-``csrc/collisions.cu``), against its plain version on the card, bit for
-bit; its launch count on the step path; and the step on the card against
-the step on the CPU under every collision system.
+``csrc/collisions.cu``), against the sequential rule
+(``collision_cases.sequential_priority``) on the card, bit for bit; its
+launch count on the step path; and the step on the card against the step
+on the CPU under every collision system.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
-one; the plain version is held to the fixpoint and to the JAX package on
-the CPU by ``test_torch_collisions_cuda.py``. This file imports no JAX,
-so the card's machine runs it as it is.
+one; the plain version, the fixpoint, is held to the sequential rule and
+to the JAX package on the CPU by ``test_torch_collisions_cuda.py``. This
+file imports no JAX, so the card's machine runs it as it is.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from collision_cases import AGENTS, SCENARIOS, random_inputs, scenario
+from collision_cases import AGENTS, SCENARIOS, random_inputs, scenario, sequential_priority
 from pogema_torch import GridConfig, PogemaCore
 from pogema_torch.core import collisions
 from pogema_torch.interop import state_to_numpy
 from pogema_torch.ops import cuda_collisions
-from pogema_torch.ops.cuda_collisions import resolve_priority, resolve_priority_ref
+from pogema_torch.ops.cuda_collisions import resolve_priority
 
 # (B, N, P) of the benchmark's cells: C.random, D.serve, E.serve.
 CELL_SHAPES = {"C": (4096, 64, 74), "D": (1024, 128, 74), "E": (1024, 256, 138)}
@@ -48,7 +49,7 @@ def test_kernel_equals_plain_at_cell_shapes(card, cell, actions_dtype):
     args = tuple(t.to(card) for t in (grid, xy, active, actions.to(actions_dtype)))
     got, launches = _launched(*args)
     assert launches == 1
-    want = resolve_priority_ref(*args)
+    want = sequential_priority(*args)
     assert torch.equal(got, want)
     assert bool((want != args[1]).any()) and bool((want == args[1]).all(-1).any())
 
@@ -60,7 +61,7 @@ def test_kernel_equals_plain_on_scenarios(card, name, n):
     args = tuple(map(torch.as_tensor, scenario(name, n)))
     got, launches = _launched(*(t.to(card) for t in args))
     assert launches == 1
-    assert torch.equal(got.cpu(), resolve_priority_ref(*args))
+    assert torch.equal(got.cpu(), sequential_priority(*args))
 
 
 @pytest.mark.cuda
@@ -71,7 +72,7 @@ def test_kernel_equals_plain_past_shared_memory(card, b, n, p):
     args = tuple(t.to(card) for t in (grid, xy, active, actions))
     got, launches = _launched(*args)
     assert launches == 1
-    assert torch.equal(got, resolve_priority_ref(*args))
+    assert torch.equal(got, sequential_priority(*args))
 
 
 @pytest.mark.cuda
@@ -96,7 +97,7 @@ def test_one_launch_per_resolve_moves_and_no_passes(card):
     launches, passes = cuda_collisions.collisions_cuda.launches, collisions.fixpoint.passes
     for dtype in (torch.int32, torch.int64, torch.uint8):
         got = collisions.resolve_moves(cfg, grid, xy, active, actions.clamp(min=0).to(dtype))
-        assert torch.equal(got, resolve_priority_ref(grid, xy, active, actions.clamp(min=0)))
+        assert torch.equal(got, sequential_priority(grid, xy, active, actions.clamp(min=0)))
     # A non-contiguous view of the positions is taken too.
     wide = torch.cat([xy, xy], -1)[..., :2]
     collisions.resolve_moves(cfg, grid, wide, active, actions)

@@ -1,9 +1,10 @@
-"""K2's plain version (``ops/cuda_collisions.py``), the sequential
-'priority' rule, against the fixpoint of ``core/collisions.py`` and
-against ``pogema_tpu``'s ``resolve_priority``, bit for bit on the CPU; and
-the wrapper's refusals, which the CPU shows as the card does.
+"""K2's wrapper on the CPU (``ops/cuda_collisions.py``), which returns
+its plain version, the fixpoint of ``ops/collisions.py``, against the
+sequential 'priority' rule (``collision_cases.sequential_priority``) and
+against ``pogema_tpu``'s ``resolve_priority``, bit for bit; and the
+wrapper's refusals, which the CPU shows as the card does.
 
-The kernel itself is held to the plain version on the card by
+The kernel itself is held to the sequential rule on the card by
 ``test_torch_collisions_card.py``.
 """
 
@@ -15,7 +16,7 @@ import torch
 
 import pogema_torch
 from pogema_torch.core import collisions as tcol
-from collision_cases import AGENTS, ENVS, SCENARIOS, scenario
+from collision_cases import AGENTS, ENVS, SCENARIOS, scenario, sequential_priority
 from pogema_torch.ops import cuda_collisions
 from pogema_tpu.core import collisions as jcol
 
@@ -29,7 +30,7 @@ def test_plain_equals_fixpoint_and_jax(name, n):
     args = tuple(map(torch.as_tensor, (grid, xy, active, actions)))
     got = cuda_collisions.resolve_priority(*args)
     assert got.dtype == torch.int32 and got.shape == (ENVS, n, 2)
-    assert torch.equal(got, tcol.resolve_priority(*args))
+    assert torch.equal(got, sequential_priority(*args))
     want = np.asarray(_jax_priority(*map(jnp.asarray, (grid, xy, active, actions))))
     np.testing.assert_array_equal(got.numpy(), want)
     # The scenario moves some agents and stops others, where it can.
@@ -43,10 +44,10 @@ def test_plain_equals_fixpoint_and_jax(name, n):
 def test_plain_takes_int64_actions_and_bool_grids():
     grid, xy, active, actions = scenario("unknown_actions", 33, seed=4)
     args = tuple(map(torch.as_tensor, (grid, xy, active, actions)))
-    want = tcol.resolve_priority(*args)
+    want = sequential_priority(*args)
     assert torch.equal(cuda_collisions.resolve_priority(
         args[0].bool(), args[1], args[2], args[3].long()), want)
-    # resolve_moves keeps the fixpoint on the CPU and takes other action types.
+    # resolve_moves takes other action types.
     cfg = pogema_torch.GridConfig(num_agents=33, collision_system="priority").to_static()
     assert torch.equal(tcol.resolve_moves(cfg, args[0], args[1], args[2], args[3].to(torch.int16)),
                        want)

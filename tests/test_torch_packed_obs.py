@@ -295,8 +295,8 @@ def test_centres_per_block_stays_in_range(multiple):
 
 
 def test_a_failed_build_raises_and_nothing_falls_back(monkeypatch):
-    # The CUDA branch of both wrappers gets its functions from _prepare
-    # alone; a build that fails must come out of it as an error.
+    # The CUDA branch of both wrappers readies the card in _prepare before
+    # any launch; a build that fails must come out of it as an error.
     def boom(name):
         raise RuntimeError("nvcc failed for windows")
 
