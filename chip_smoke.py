@@ -34,7 +34,10 @@ result line):
      plain version (the fixpoint of ``ops/collisions.py``) at the shapes
      of C.random, D.serve and E.serve, crowded, at one warp a block and
      past shared memory, and timed at the three cells' shapes beside its
-     bound and the fixpoint;
+     bound and the fixpoint; then k8: the served recurrent policy step
+     K8 timed alone at D.serve's and E.serve's rows (131,072 with
+     rec128_ft and 262,144 with maze256) beside its bound and the plain
+     version (its checks are ``tests/test_torch_policy_card.py``'s);
   4. every collision system x on_target, cached and regen auto-reset: a
      small reset and 64 ``step_autoreset`` steps on the card must equal
      the same run on the CPU bit for bit (the CPU run is held against
@@ -56,13 +59,13 @@ result line):
   7. serve, the evaluation path at full width: ``make_policy_evaluator``
      on config D (1024 envs x 128 agents, LifeLong 64x64, r=5) with those
      weights, 3 greedy episodes (the benchmark's cell ``D.serve`` times
-     such episodes), K1b and K2 launched exactly once per step, K7 10
+     such episodes), K1b, K2 and K8 launched exactly once per step, K7 10
      times an episode and 2N + 5 times per placement try, invariants and
      metrics checked;
      then serve_e, config E (1024 envs x 256 agents, 128x128 worlds of
      the mixed random + maze pool, packed) served with the shipped
      ``.ckpt_maze256`` weights (``weights/maze256.npz``) in bf16: a
-     warm-up and 2 greedy episodes, K1b once per step (their timing is
+     warm-up and 2 greedy episodes, K1b, K2 and K8 once per step (their timing is
      the benchmark's cell ``E.serve``), the policy card vs CPU at B = 2,
      and the eval ladder's config-E leg (PPO and random through
      ``toolbox.evaluate``, K1 steps + 1 times each);
@@ -101,7 +104,8 @@ result line):
  15. train, the training path at full width: three recurrent PPO train
      steps on config D (1024 envs x 128 agents, regen auto-reset) from the
      shipped weights in bf16: stats, the split of each step's seconds,
-     peak memory, K1b launched exactly 64 + 1 + 2*8*64 times per step;
+     peak memory, K1b launched exactly 64 + 1 + 2*8*64 times per step
+     and K8 never (the learner runs outside inference mode);
  16. train_ff: three fused train steps at 1024 envs x 8 agents, 16x16
      (embed/hidden 256, 'auto' picks 'pre': no kernel launch, the grid
      convolutions counted), then one step with obstacle_path='windows'
@@ -713,6 +717,70 @@ def phase_k2(device):
     return record
 
 
+def phase_k8(device):
+    """K8, the served recurrent policy step, at the served cells' rows:
+    D.serve's 1024 x 128 with rec128_ft and E.serve's 1024 x 256 with
+    maze256, on packed observations of 0/1 entries (a third of them 1) and
+    h drawn in (-1, 1). First held to the plain version
+    (``step_from_obs``) on the same inputs, with the card tests'
+    tolerances (``tests/test_torch_policy_card.py``: h' entries that
+    differ, the largest h' gap, the largest logit or value gap); then
+    timed by graph replay and by CUDA events, beside its byte bound (the
+    observation read once, h read and written, logits and value written)
+    and the plain version's time by events. Its registers and spills are
+    the build's ptxas lines. Returns the kernel record."""
+    import torch
+
+    from pogema_torch.interop import load_policy
+    from pogema_torch.ops import cuda_policy
+
+    h_share, h_gap, logit_gap = 1e-5, 0.125, 0.25  # H_SHARE, H_GAP, STEP_LOGIT_GAP
+    saved = cuda_policy.policy_cuda.launches
+    record = {"kernel": "K8 recurrent policy step"}
+    for label, (b, n, weights) in {"D.serve": (NUM_ENVS_D, CONFIG_D["num_agents"], WEIGHTS),
+                                   "E.serve": (NUM_ENVS_E, CONFIG_E["num_agents"], WEIGHTS_E)
+                                   }.items():
+        model = load_policy(weights, device=device)
+        k, width = 3 * model.window ** 2, model.hidden
+        gen = torch.Generator(device=device).manual_seed(b + n)
+        obs = (torch.rand(b, n, k, device=device, generator=gen) < 1 / 3).float()
+        h = (torch.rand(b, n, width, device=device, generator=gen) * 2 - 1).to(torch.bfloat16)
+        out_bytes = b * n * (2 * width + 4 * 6)
+        nbytes = b * n * 4 * k + b * n * 2 * width + out_bytes
+
+        def run():
+            with torch.inference_mode():
+                return cuda_policy.policy_step(model, obs, h)
+
+        def plain():
+            with torch.no_grad():
+                return model.step_from_obs(obs, h)
+
+        got, want = run(), plain()
+        gaps = {"h_share": float((got[0] != want[0]).float().mean()),
+                "h_gap": float((got[0].float() - want[0].float()).abs().max()),
+                "logit_gap": max(float((a - w).abs().max()) for a, w in zip(got[1:], want[1:]))}
+        print(f"K8 at {label}'s [{b}, {n}] against the plain version: h' differs in "
+              f"{gaps['h_share']:.3e} of the entries, by at most {gaps['h_gap']:.3e}; logits "
+              f"and value within {gaps['logit_gap']:.3e}", flush=True)
+        if gaps["h_share"] > h_share or gaps["h_gap"] > h_gap or gaps["logit_gap"] > logit_gap:
+            raise RuntimeError(f"K8 at {label} parts from the plain version: {gaps} against "
+                               f"{h_share}, {h_gap}, {logit_gap}")
+        rec = {"shape": [b, n, k], "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "flop_bound_ms": 291_072 * b * n / 989e12 * 1e3,
+               "device_ms": graph_time_ms(run, _graph_launches(out_bytes)),
+               "ms": cuda_time_ms(run), "plain_ms": cuda_time_ms(plain, iters=10), **gaps}
+        record[label] = rec
+        print(f"K8 at {label}'s [{b}, {n}]: {rec['device_ms']:.4f} ms device time by graph "
+              f"replay ({rec['bound_ms'] / rec['device_ms']:.2f} of its bound, "
+              f"{rec['bound_ms']:.4f} ms by {nbytes} bytes; {rec['flop_bound_ms']:.4f} ms by "
+              f"FLOPs), {rec['ms']:.4f} ms by events; the plain version {rec['plain_ms']:.4f} "
+              f"ms by events", flush=True)
+    cuda_policy.policy_cuda.launches = saved
+    return record
+
+
 def _states_equal(a, b):
     from pogema_torch.interop import state_to_numpy
     import numpy as np
@@ -953,6 +1021,7 @@ def phase_serve(device):
     from pogema_torch.core import collisions
     from pogema_torch.interop import load_policy
     from pogema_torch.ops.cuda_collisions import collisions_cuda
+    from pogema_torch.ops.cuda_policy import policy_cuda
     from pogema_torch.ops.cuda_threefry import threefry_cuda
     from pogema_torch.parallel import make_policy_evaluator
 
@@ -969,13 +1038,17 @@ def phase_serve(device):
     # attempt's split, the map's Bernoulli draw, the placement's split, the
     # agents' uniform and a fold_in and bits per agent.
     k7_fixed, k7_per_try = 2 + 1 + 7, 5 + 2 * n
-    throughput, k7_episodes, k2_episodes = [], [], []
+    throughput, k7_episodes, k2_episodes, k8_episodes = [], [], [], []
     k1.launches = kernel.launches = 0
     collisions.fixpoint.passes = 0
     for ep in range(SERVE_EPISODES):
-        before, k7_before, k2_before = (kernel.launches, threefry_cuda.launches,
-                                        collisions_cuda.launches)
+        before, k7_before, k2_before, k8_before = (kernel.launches, threefry_cuda.launches,
+                                                   collisions_cuda.launches, policy_cuda.launches)
         state, metrics = run(core.make_key(ep))
+        k8_episodes.append(policy_cuda.launches - k8_before)
+        if k8_episodes[-1] != steps:
+            raise AssertionError(f"episode {ep} launched K8 {k8_episodes[-1]} times, expected "
+                                 f"{steps} (one per policy step)")
         if kernel.launches - before != steps:
             raise AssertionError(f"episode {ep} launched K1b {kernel.launches - before} times, "
                                  f"expected {steps} (one per policy step)")
@@ -1001,7 +1074,8 @@ def phase_serve(device):
     summary = {"avg_throughput": throughput, "k1_launches": launches[0],
                "k1b_launches": launches[1],
                "k1b_launches_per_episode": launches[1] / SERVE_EPISODES,
-               "k7_launches_per_episode": k7_episodes, "k2_launches_per_episode": k2_episodes}
+               "k7_launches_per_episode": k7_episodes, "k2_launches_per_episode": k2_episodes,
+               "k8_launches_per_episode": k8_episodes}
     print("serve (config D, 1024 x 128, rec128_ft bf16, greedy): " + json.dumps(summary), flush=True)
     return launches, summary
 
@@ -1290,6 +1364,7 @@ def phase_serve_e(device):
     from pogema_torch.interop import load_policy
     from pogema_torch.maps import mixed_pool
     from pogema_torch.ops.cuda_collisions import collisions_cuda
+    from pogema_torch.ops.cuda_policy import policy_cuda
     from pogema_torch.parallel import make_policy_evaluator
     from pogema_torch.toolbox import evaluate
 
@@ -1302,11 +1377,16 @@ def phase_serve_e(device):
     run = make_policy_evaluator(core, model)
     run(core.make_key(100))
 
-    launches, throughput = {}, []
+    launches, throughput, k8_episodes = {}, [], []
     k1.launches = kernel.launches = 0
     for ep in range(2):
-        before, k2_before = kernel.launches, collisions_cuda.launches
+        before, k2_before, k8_before = (kernel.launches, collisions_cuda.launches,
+                                        policy_cuda.launches)
         state, metrics = run(core.make_key(ep))
+        k8_episodes.append(policy_cuda.launches - k8_before)
+        if k8_episodes[-1] != steps:
+            raise AssertionError(f"config-E episode {ep} launched K8 {k8_episodes[-1]} times, "
+                                 f"expected {steps}")
         if kernel.launches - before != steps:
             raise AssertionError(f"config-E episode {ep} launched K1b {kernel.launches - before} "
                                  f"times, expected {steps}")
@@ -1365,7 +1445,7 @@ def phase_serve_e(device):
         ladder[algo] = {"seconds": time.perf_counter() - t0,
                         "avg_throughput": m["avg_throughput"]}
     summary = {"envs": b, "agents": n, "reset_s": reset_s, "avg_throughput": throughput,
-               "k1b_launches": launches["serve_e"][1],
+               "k1b_launches": launches["serve_e"][1], "k8_launches_per_episode": k8_episodes,
                "policy_b2_max_rel_err": max(errs), "policy_b2_decided": decided,
                "policy_b2_flips": flips, "ladder_world": idx, "ladder": ladder}
     print(f"serve_e (config E, {b} x {n}, maze256 bf16, greedy): " + json.dumps(summary),
@@ -1640,6 +1720,7 @@ def _run_train_steps(label, core, model, cfg, init, make, key_seed, steps, expec
     import torch
 
     from pogema_torch.models import EmbedActorCritic
+    from pogema_torch.ops.cuda_policy import policy_cuda
 
     k1, kernel = _kernels()
     start, hook, seconds = _sync_clock()
@@ -1654,7 +1735,7 @@ def _run_train_steps(label, core, model, cfg, init, make, key_seed, steps, expec
     k1.launches = kernel.launches = 0
     out = []
     for i in range(steps):
-        before, convs = kernel.launches, EmbedActorCritic.grid_embed.calls
+        before, convs, k8 = kernel.launches, EmbedActorCritic.grid_embed.calls, policy_cuda.launches
         old = ts.params
         torch.cuda.reset_peak_memory_stats()
         start()
@@ -1666,7 +1747,8 @@ def _run_train_steps(label, core, model, cfg, init, make, key_seed, steps, expec
                "env_steps_per_s": core.num_envs * cfg.rollout_steps / total,
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "k1_launches": k1.launches, "k1b_launches": kernel.launches - before,
-               "grid_convs": EmbedActorCritic.grid_embed.calls - convs}
+               "grid_convs": EmbedActorCritic.grid_embed.calls - convs,
+               "k8_launches": policy_cuda.launches - k8}
         print(f"{label} step {i}: " + json.dumps(rec), flush=True)
         out.append(rec)
         if not all(math.isfinite(v) for v in host.values()):
@@ -1679,6 +1761,9 @@ def _run_train_steps(label, core, model, cfg, init, make, key_seed, steps, expec
         if rec["k1b_launches"] != expect_k1b or k1.launches != 0:
             raise AssertionError(f"{label} step {i}: K1b launched {rec['k1b_launches']} times, "
                                  f"expected {expect_k1b}; K1 {k1.launches} times, expected 0")
+        if rec["k8_launches"] != 0:
+            raise AssertionError(f"{label} step {i}: K8 launched {rec['k8_launches']} times, "
+                                 "expected 0 (the learner runs outside inference mode)")
         if not bool(finite[0]):
             raise AssertionError(f"{label} step {i}: a gradient is not finite")
         if not any(not torch.equal(old[k], ts.params[k]) for k in old):
@@ -1721,6 +1806,7 @@ def phase_train(device):
                "env_steps_per_s_best": best["env_steps_per_s"],
                "peak_gib": max(r["peak_gib"] for r in recs),
                "k1b_launches_per_step": launches[1] / TRAIN_STEPS,
+               "k8_launches_per_step": [r["k8_launches"] for r in recs],
                "episode_avg_throughput_step1": thr}
     print("train summary: " + json.dumps(summary), flush=True)
     return launches, summary
@@ -2734,6 +2820,7 @@ def main() -> int:
     wide_out = phase("k1b_wide", phase_k1b_wide, device)
     record_k7 = phase("k7", phase_k7, device)
     record_k2 = phase("k2", phase_k2, device)
+    record_k8 = phase("k8", phase_k8, device)
     phase("devices_agree", phase_devices_agree, device)
     main_out = phase("main_path", phase_main, device)
     pomapf_out = phase("pomapf", phase_pomapf, device)
@@ -2754,7 +2841,7 @@ def main() -> int:
     mesh_nccl_out = phase("mesh_nccl", phase_mesh_nccl, device)
 
     shapes = phase("k1_shapes", phase_k1_shapes, device)
-    if failed or None in (record, record_b, record_k7, record_k2, wide_out, main_out, pomapf_out, serve_out,
+    if failed or None in (record, record_b, record_k7, record_k2, record_k8, wide_out, main_out, pomapf_out, serve_out,
                           serve_e_out, train_out, train_ff_out, shapes, rim_env_out,
                           rim_vector_out, mesh_one_out, mesh_gloo_out, mesh_nccl_out):
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
@@ -2807,7 +2894,11 @@ def main() -> int:
                                      "serve_per_episode": serve_out[1]["k7_launches_per_episode"]}
     record_k2["launches_by_path"] = {"main_path_per_step": main_out[1]["k2_launches_per_step"],
                                      "serve_per_episode": serve_out[1]["k2_launches_per_episode"]}
-    print(json.dumps({"kernels": [record, record_b, record_k7, record_k2]}))
+    record_k8["launches_by_path"] = {"serve_per_episode": serve_out[1]["k8_launches_per_episode"],
+                                     "serve_e_per_episode":
+                                         serve_e_out[1]["k8_launches_per_episode"],
+                                     "train_per_step": train_out[1]["k8_launches_per_step"]}
+    print(json.dumps({"kernels": [record, record_b, record_k7, record_k2, record_k8]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

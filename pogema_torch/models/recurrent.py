@@ -33,6 +33,7 @@ from torch import nn
 
 from ..grid_config import NUM_ACTIONS
 from ..core.obs import packed_observation
+from ..ops import cuda_policy
 from .embed_actor_critic import dense, embed_obs, linear
 from .tensor_parallel import copy_to_model, gather_from_model
 
@@ -95,8 +96,22 @@ class RecurrentEmbedActorCritic(nn.Module):
         """One recurrent step from raw state: grids u8[B, P, P];
         agents_xy/targets_xy i32[B, N, 2]; active bool[B, N]; h
         dtype[B, N, hidden]. The packed observation is one K1b launch on
-        the card."""
+        the card. The rest is one K8 launch where
+        ``ops.cuda_policy.engages`` (under inference mode on the card, in
+        bf16 at 128/128), else :meth:`step_from_obs`."""
         obs = packed_observation(self.window, grids, agents_xy, targets_xy, active)
+        if cuda_policy.engages(self, obs.device):
+            h = h.to(self.dtype).contiguous()
+            if h.data_ptr() % 16:  # K8 reads h 16 bytes at a time
+                h = h.clone()
+            return cuda_policy.policy_step(self, obs, h)
+        return self.step_from_obs(obs, h)
+
+    def step_from_obs(self, obs, h):
+        """The step from the packed observation obs f32[..., N, 3*W*W]:
+        the embedding with its bias rounded to ``dtype``, as the JAX
+        module's ``step_from_state`` adds it, the cell and the head. K8's
+        plain version."""
         bias = self.embed_bias.to(self.dtype)
         return self._finish(h, embed_obs(self.embed_kernel, bias, self.dtype, obs))
 

@@ -4,7 +4,9 @@
 version in PyTorch. ``cuda_<name>.py`` is the wrapper of its kernels in
 ``csrc/<name>.cu``: it refuses what a kernel does not take, returns the
 plain version for CPU tensors and launches the kernel for CUDA ones.
-``launch.py`` is the seam every wrapper launches through (binding, the
+``cuda_policy.py``'s plain version is the model's own step
+(``RecurrentEmbedActorCritic.step_from_obs``), which it calls and does
+not import. ``launch.py`` is the seam every wrapper launches through (binding, the
 launch on the current stream, the refusals they share); ``build.py``
 compiles ``csrc/*.cu`` with nvcc.
 """

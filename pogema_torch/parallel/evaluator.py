@@ -5,7 +5,10 @@ Counterpart of ``pogema_tpu/parallel/evaluator.py``
 observation-free policy forward (``EmbedActorCritic.from_state`` or
 ``RecurrentEmbedActorCritic.step_from_state``, one K1b launch each on the
 card), the action, the env step, and the freeze of the envs whose
-episode had already ended; then the episode metrics. The JAX package
+episode had already ended; then the episode metrics. An episode runs
+under ``torch.inference_mode``: its tensors can never enter autograd, so
+a recurrent bf16 128/128 policy's steps on the card go to K8
+(``ops.cuda_policy.engages``). The JAX package
 runs this as one jitted ``lax.scan``; here it is a Python loop of batched
 tensor ops.
 
@@ -56,7 +59,7 @@ def make_policy_evaluator(core, model, greedy: bool = True):
         logits, _ = model.from_state(st.obstacles, st.agents_xy, st.targets_xy, st.active)
         return h, logits
 
-    @torch.no_grad()
+    @torch.inference_mode()
     @traced("pogema.episode")
     def run(key):
         key = torch.as_tensor(key, device=core.device).to(torch.int64)
