@@ -87,11 +87,10 @@ result line):
  12. rim_vector: ``PogemaVectorEnv`` at config C's widths with 1024 envs,
      64 steps packed (K1b 129 launches), 64 steps grid (K1 65: a cached
      step's two observation sets share one launch) and 16 steps POMAPF,
-     episodes cut so that every env ends inside the window: ms per step
-     (the ending step, which also copies the terminal observations, apart),
-     env-steps/s, bytes copied to the host per step and the copy's ms;
-     observations and terminal observations of a sample of envs against
-     the plain observation;
+     episodes cut so that every env ends inside the window: bytes copied
+     to the host and terminal rows (the rim's counters); observations and
+     terminal observations of a sample of envs against the plain
+     observation (the benchmark's cell ``rim.vector`` times this path);
  13. rim_toolbox: ``toolbox.evaluate`` with A* and the planner on a
      registry map and on random 32x32 maps, card == CPU;
  14. train_agree: two PPO train steps of each flavour (observation-based,
@@ -2198,19 +2197,19 @@ def phase_rim_vector(device):
     and 16 steps of POMAPF (K1 likewise). Episodes are cut to 48 steps (12
     for POMAPF), so that every env ends inside the window: that step also
     copies the terminal observations (``final_obs``) to the host. For
-    each: ms per step (median, and the ending step apart) and env-steps/s
-    of ``env.step`` with host actions, the bytes a step copies to the
-    host, and, outside the counted run, the same steps again through their
-    parts (upload, core step, host copy). The returned observations of the
-    last step and the terminal observations of the ending step are held,
-    for a sample of envs, against the plain observation on the CPU.
-    Returns ({label: (K1, K1b) launches}, summary)."""
+    each: the bytes copied to the host (``fetch.bytes``) and the terminal
+    rows copied (``PogemaVectorEnv._final_obs.rows``). The returned
+    observations of the last step and the terminal observations of the
+    ending step are held, for a sample of envs, against the plain
+    observation on the CPU. The benchmark's cell ``rim.vector`` times
+    this path at config C's 4096 envs. Returns ({label: (K1, K1b)
+    launches}, summary)."""
     import numpy as np
     import torch
 
     from pogema_torch import GridConfig, PogemaVectorEnv
     from pogema_torch.core import step as step_mod
-    from pogema_torch.utils.host import nbytes
+    from pogema_torch.utils import host
 
     k1, k1b = _kernels()
     b = RIM_VECTOR_ENVS
@@ -2224,17 +2223,12 @@ def phase_rim_vector(device):
         rng = np.random.default_rng(0)
         acts = [rng.integers(0, 5, size=env.num_envs) for _ in range(steps)]
         k1.launches = k1b.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         env.reset()
-        reset_s = time.perf_counter() - t0
-        step_s = []
+        copied, rows = host.fetch.bytes, PogemaVectorEnv._final_obs.rows
         for t, a in enumerate(acts):
             if t == ep - 1:
                 before_end = env._state
-            t0 = time.perf_counter()
             obs, rew, term, trunc, infos = env.step(a)
-            step_s.append(time.perf_counter() - t0)
             if t == ep - 1:
                 end_infos = infos
         got = (k1.launches, k1b.launches)
@@ -2242,6 +2236,9 @@ def phase_rim_vector(device):
         if got != want:
             raise AssertionError(f"rim_vector {label}: (K1, K1b) launched {got} times, "
                                  f"expected {want}")
+        if PogemaVectorEnv._final_obs.rows - rows != b:
+            raise AssertionError(f"rim_vector {label}: {PogemaVectorEnv._final_obs.rows - rows} "
+                                 f"terminal rows copied, expected {b}")
         launches[label] = got
         core, state = env._core, env._state
         idx = torch.linspace(0, b - 1, 16, device=device).long()
@@ -2258,22 +2255,15 @@ def phase_rim_vector(device):
                                  f"step {ep}, final_obs mask {end_infos['_final_obs'].sum()}")
         _check_obs_sample(label, "final_obs", end_infos["final_obs"], core.cfg, ended, idx)
         check_state_invariants(state)
-        parts, tree = _replay_parts(core, core.make_key(0), acts, state,
-                                    lambda a: a.reshape(b, -1), auto_reset=True)
-        ms = _median_ms(step_s)
         summary[label] = {"envs": b, "agents": core.cfg.num_agents, "steps": steps,
-                          "episode_steps": ep, "reset_s": reset_s, "ms_per_step_median": ms,
-                          "ms_per_step_best": min(step_s) * 1e3,
-                          "ms_per_step_worst": max(step_s) * 1e3,
-                          "ms_ending_step": step_s[ep - 1] * 1e3,
-                          "env_steps_per_s": b / ms * 1e3,
-                          "bytes_to_host_per_step": nbytes(tree),
+                          "episode_steps": ep,
+                          "bytes_to_host_per_step": (host.fetch.bytes - copied) / steps,
                           "final_obs_host_bytes": sum(
                               v.nbytes for v in (end_infos["final_obs"].values()
                                                  if obs_type == "POMAPF"
-                                                 else [end_infos["final_obs"]])), **parts,
+                                                 else [end_infos["final_obs"]])),
                           "k1_launches": got[0], "k1b_launches": got[1]}
-        del env, obs, tree, infos, end_infos, before_end, ended
+        del env, obs, infos, end_infos, before_end, ended
     print("rim_vector (PogemaVectorEnv, config C widths, 1024 envs, cached): "
           + json.dumps(summary), flush=True)
     return launches, summary

@@ -33,6 +33,11 @@ consumes.
   (ISR/CSR/ep_length, avg_throughput for LifeLong) in
   ``infos["metrics/<k>"]`` (mask ``infos["_metrics"]``), broadcast per
   agent slot.
+* Tracing: :meth:`PogemaVectorEnv.step` runs in the span
+  ``pogema.vector.step`` and the terminal copy in
+  ``pogema.vector.final_obs``; ``PogemaVectorEnv._final_obs.rows`` counts
+  the env rows that copy took (the attribute sits on the traced method),
+  and ``fetch.bytes`` the bytes of every host copy.
 
 Upstream parity anchor: pogema/integrations/sample_factory.py is the
 reference's only auto-reset consumer (B=1); this generalizes it to B
@@ -51,6 +56,7 @@ from ..core.api import PogemaCore
 from ..grid_config import NUM_ACTIONS, GridConfig
 from ..utils.gym_compat import SAME_STEP, VectorEnv, gymnasium, spaces
 from ..utils.host import fetch
+from ..utils.profiling import traced
 
 
 def _host_dtype(obs_dtype) -> np.dtype:
@@ -151,10 +157,13 @@ class PogemaVectorEnv(VectorEnv):
         a = self._flat(x)
         return a if a.dtype == self._host_obs_dtype else a.astype(self._host_obs_dtype)
 
+    @traced("pogema.vector.final_obs")
     def _final_obs(self, observations, done: np.ndarray):
         """The terminal observations of the envs that ended (``done``),
-        zeros in every other slot. Copies only the ended envs' rows."""
+        zeros in every other slot. Copies only the ended envs' rows, and
+        adds their number to ``PogemaVectorEnv._final_obs.rows``."""
         idx = np.nonzero(done)[0]
+        PogemaVectorEnv._final_obs.rows += len(idx)
         sel = torch.as_tensor(idx, device=self.device)
 
         def place(rows):
@@ -181,6 +190,7 @@ class PogemaVectorEnv(VectorEnv):
         self._initial_state = self._state
         return self._host_obs(fetch(obs)), {}
 
+    @traced("pogema.vector.step")
     def step(self, actions):
         """``actions``: B*N integers (numpy, a list, or a tensor on any
         device)."""
@@ -205,3 +215,6 @@ class PogemaVectorEnv(VectorEnv):
 
     def close_extras(self, **kwargs):
         self._state = self._initial_state = None
+
+
+PogemaVectorEnv._final_obs.rows = 0
