@@ -37,7 +37,11 @@ result line):
      bound and the fixpoint; then k8: the served recurrent policy step
      K8 timed alone at D.serve's and E.serve's rows (131,072 with
      rec128_ft and 262,144 with maze256) beside its bound and the plain
-     version (its checks are ``tests/test_torch_policy_card.py``'s);
+     version (its checks are ``tests/test_torch_policy_card.py``'s); then
+     k4: the component labels' kernel K4 bit-equal to its plain version
+     (the flood fill of ``ops/components.py``) at D.serve's and E.serve's
+     grids, and timed alone at the two cells' shapes beside its byte
+     bound and the plain version;
   4. every collision system x on_target, cached and regen auto-reset: a
      small reset and 64 ``step_autoreset`` steps on the card must equal
      the same run on the CPU bit for bit (the CPU run is held against
@@ -60,12 +64,14 @@ result line):
      on config D (1024 envs x 128 agents, LifeLong 64x64, r=5) with those
      weights, 3 greedy episodes (the benchmark's cell ``D.serve`` times
      such episodes), K1b, K2 and K8 launched exactly once per step, K7 10
-     times an episode and 2N + 5 times per placement try, invariants and
-     metrics checked;
+     times an episode and 2N + 5 times per placement try, K4 once per
+     placement try and no flood-fill sweep, invariants and metrics
+     checked;
      then serve_e, config E (1024 envs x 256 agents, 128x128 worlds of
      the mixed random + maze pool, packed) served with the shipped
      ``.ckpt_maze256`` weights (``weights/maze256.npz``) in bf16: a
-     warm-up and 2 greedy episodes, K1b, K2 and K8 once per step (their timing is
+     warm-up and 2 greedy episodes, K1b, K2 and K8 once per step, K4 once
+     per placement try and no sweep (their timing is
      the benchmark's cell ``E.serve``), the policy card vs CPU at B = 2,
      and the eval ladder's config-E leg (PPO and random through
      ``toolbox.evaluate``, K1 steps + 1 times each);
@@ -780,6 +786,74 @@ def phase_k8(device):
     return record
 
 
+def phase_k4(device):
+    """K4, the component labels of the reset, bit-equal to its plain
+    version (the flood fill of ``ops/components.py``, run on the card) at
+    D.serve's shape (1024 Bernoulli(0.3) maps of 64 x 64 in their border,
+    P = 74) and E.serve's (1024 worlds of config E's braided pool,
+    P = 138), one launch each (``tests/test_torch_components_card.py``
+    holds the other grid families); then timed at the two cells' shapes
+    by graph replay and by CUDA events, beside its byte bound (the grids
+    read and the i64 labels written once) and the plain version's time by
+    events, host syncs included. Its registers, spills and shared memory
+    are the build's ptxas lines. Returns the kernel record."""
+    import numpy as np
+    import torch
+
+    from pogema_torch.maps import mixed_pool
+    from pogema_torch.ops import components, cuda_components
+
+    r = CONFIG_D["obs_radius"]
+    rng = np.random.default_rng(4)
+    d_inner = rng.random((NUM_ENVS_D, CONFIG_D["size"], CONFIG_D["size"])) < CONFIG_D["density"]
+    pool = mixed_pool(CONFIG_E["size"], k=8, braid=0.15)
+    e_inner = pool[rng.integers(0, len(pool), NUM_ENVS_E)]
+
+    def padded(inner):
+        return torch.nn.functional.pad(torch.as_tensor(inner, dtype=torch.uint8).to(device),
+                                       (r, r, r, r), value=1)
+
+    cases = {"D.serve": padded(d_inner), "E.serve": padded(e_inner)}
+    saved = cuda_components.components_cuda.launches
+    for label, grid in cases.items():
+        before = cuda_components.components_cuda.launches
+        got = cuda_components.connected_components(grid)
+        torch.cuda.synchronize()
+        if cuda_components.components_cuda.launches != before + 1:
+            raise AssertionError(f"K4 at {label} launched "
+                                 f"{cuda_components.components_cuda.launches - before} times, "
+                                 f"expected 1")
+        sweeps = components.connected_components.sweeps
+        want = components.connected_components(grid)
+        sweeps = components.connected_components.sweeps - sweeps
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 differs from its plain version at {label}")
+        print(f"K4 bit-equal to its plain version at {label} ({sweeps} sweeps of the plain "
+              f"version)", flush=True)
+
+    record = {"kernel": "K4 component labels"}
+    for label, grid in cases.items():
+        b, p, _ = grid.shape
+        nbytes = b * p * p * 9
+
+        def run():
+            return cuda_components.connected_components(grid)
+
+        rec = {"shape": [b, p], "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "device_ms": graph_time_ms(run, _graph_launches(b * p * p * 8)),
+               "ms": cuda_time_ms(run),
+               "plain_ms": cuda_time_ms(lambda: components.connected_components(grid), iters=3,
+                                        warmup=1)}
+        record[label] = rec
+        print(f"K4 at {label}'s [{b}, {p}, {p}]: {rec['device_ms']:.4f} ms device time by graph "
+              f"replay ({rec['bound_ms'] / rec['device_ms']:.2f} of its bound, "
+              f"{rec['bound_ms']:.4f} ms by {nbytes} bytes), {rec['ms']:.4f} ms by events; the "
+              f"plain version {rec['plain_ms']:.4f} ms by events, host syncs included",
+              flush=True)
+    cuda_components.components_cuda.launches = saved
+    return record
+
+
 def _states_equal(a, b):
     from pogema_torch.interop import state_to_numpy
     import numpy as np
@@ -1008,6 +1082,17 @@ def _policy_vs_cpu(device, weights, states):
     return errs, decided, flips
 
 
+def _check_k4(label, launches, tries, sweeps):
+    """K4 once per placement try of a reset on the card, and no sweep of
+    the plain flood fill. Returns the launches."""
+    if launches != tries or tries < 1:
+        raise AssertionError(f"{label} launched K4 {launches} times in {tries} placement tries, "
+                             f"expected one a try")
+    if sweeps != 0:
+        raise AssertionError(f"{label} made {sweeps} flood-fill sweeps on the card, expected 0")
+    return launches
+
+
 def phase_serve(device):
     """This slice's path at full width: make_policy_evaluator on config D
     (1024 envs x 128 agents, 64x64, r=5, LifeLong) with the shipped
@@ -1017,9 +1102,10 @@ def phase_serve(device):
     import torch
 
     from pogema_torch import GridConfig, PogemaCore
-    from pogema_torch.core import collisions
+    from pogema_torch.core import collisions, generator
     from pogema_torch.interop import load_policy
     from pogema_torch.ops.cuda_collisions import collisions_cuda
+    from pogema_torch.ops.cuda_components import components_cuda
     from pogema_torch.ops.cuda_policy import policy_cuda
     from pogema_torch.ops.cuda_threefry import threefry_cuda
     from pogema_torch.parallel import make_policy_evaluator
@@ -1037,13 +1123,18 @@ def phase_serve(device):
     # attempt's split, the map's Bernoulli draw, the placement's split, the
     # agents' uniform and a fold_in and bits per agent.
     k7_fixed, k7_per_try = 2 + 1 + 7, 5 + 2 * n
-    throughput, k7_episodes, k2_episodes, k8_episodes = [], [], [], []
+    throughput, k7_episodes, k2_episodes, k8_episodes, k4_episodes = [], [], [], [], []
     k1.launches = kernel.launches = 0
     collisions.fixpoint.passes = 0
     for ep in range(SERVE_EPISODES):
         before, k7_before, k2_before, k8_before = (kernel.launches, threefry_cuda.launches,
                                                    collisions_cuda.launches, policy_cuda.launches)
+        k4_before, tries, sweeps = (components_cuda.launches, generator.generate_env.tries,
+                                    generator.connected_components.sweeps)
         state, metrics = run(core.make_key(ep))
+        k4_episodes.append(_check_k4(f"episode {ep}", components_cuda.launches - k4_before,
+                                     generator.generate_env.tries - tries,
+                                     generator.connected_components.sweeps - sweeps))
         k8_episodes.append(policy_cuda.launches - k8_before)
         if k8_episodes[-1] != steps:
             raise AssertionError(f"episode {ep} launched K8 {k8_episodes[-1]} times, expected "
@@ -1074,7 +1165,7 @@ def phase_serve(device):
                "k1b_launches": launches[1],
                "k1b_launches_per_episode": launches[1] / SERVE_EPISODES,
                "k7_launches_per_episode": k7_episodes, "k2_launches_per_episode": k2_episodes,
-               "k8_launches_per_episode": k8_episodes}
+               "k8_launches_per_episode": k8_episodes, "k4_launches_per_episode": k4_episodes}
     print("serve (config D, 1024 x 128, rec128_ft bf16, greedy): " + json.dumps(summary), flush=True)
     return launches, summary
 
@@ -1359,10 +1450,12 @@ def phase_serve_e(device):
     import torch
 
     from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch.core import generator
     from pogema_torch.core import step as step_mod
     from pogema_torch.interop import load_policy
     from pogema_torch.maps import mixed_pool
     from pogema_torch.ops.cuda_collisions import collisions_cuda
+    from pogema_torch.ops.cuda_components import components_cuda
     from pogema_torch.ops.cuda_policy import policy_cuda
     from pogema_torch.parallel import make_policy_evaluator
     from pogema_torch.toolbox import evaluate
@@ -1376,12 +1469,18 @@ def phase_serve_e(device):
     run = make_policy_evaluator(core, model)
     run(core.make_key(100))
 
-    launches, throughput, k8_episodes = {}, [], []
+    launches, throughput, k8_episodes, k4_episodes = {}, [], [], []
     k1.launches = kernel.launches = 0
     for ep in range(2):
         before, k2_before, k8_before = (kernel.launches, collisions_cuda.launches,
                                         policy_cuda.launches)
+        k4_before, tries, sweeps = (components_cuda.launches, generator.generate_env.tries,
+                                    generator.connected_components.sweeps)
         state, metrics = run(core.make_key(ep))
+        k4_episodes.append(_check_k4(f"config-E episode {ep}",
+                                     components_cuda.launches - k4_before,
+                                     generator.generate_env.tries - tries,
+                                     generator.connected_components.sweeps - sweeps))
         k8_episodes.append(policy_cuda.launches - k8_before)
         if k8_episodes[-1] != steps:
             raise AssertionError(f"config-E episode {ep} launched K8 {k8_episodes[-1]} times, "
@@ -1445,6 +1544,7 @@ def phase_serve_e(device):
                         "avg_throughput": m["avg_throughput"]}
     summary = {"envs": b, "agents": n, "reset_s": reset_s, "avg_throughput": throughput,
                "k1b_launches": launches["serve_e"][1], "k8_launches_per_episode": k8_episodes,
+               "k4_launches_per_episode": k4_episodes,
                "policy_b2_max_rel_err": max(errs), "policy_b2_decided": decided,
                "policy_b2_flips": flips, "ladder_world": idx, "ladder": ladder}
     print(f"serve_e (config E, {b} x {n}, maze256 bf16, greedy): " + json.dumps(summary),
@@ -2811,6 +2911,7 @@ def main() -> int:
     record_k7 = phase("k7", phase_k7, device)
     record_k2 = phase("k2", phase_k2, device)
     record_k8 = phase("k8", phase_k8, device)
+    record_k4 = phase("k4", phase_k4, device)
     phase("devices_agree", phase_devices_agree, device)
     main_out = phase("main_path", phase_main, device)
     pomapf_out = phase("pomapf", phase_pomapf, device)
@@ -2831,7 +2932,7 @@ def main() -> int:
     mesh_nccl_out = phase("mesh_nccl", phase_mesh_nccl, device)
 
     shapes = phase("k1_shapes", phase_k1_shapes, device)
-    if failed or None in (record, record_b, record_k7, record_k2, record_k8, wide_out, main_out, pomapf_out, serve_out,
+    if failed or None in (record, record_b, record_k7, record_k2, record_k8, record_k4, wide_out, main_out, pomapf_out, serve_out,
                           serve_e_out, train_out, train_ff_out, shapes, rim_env_out,
                           rim_vector_out, mesh_one_out, mesh_gloo_out, mesh_nccl_out):
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
@@ -2888,7 +2989,11 @@ def main() -> int:
                                      "serve_e_per_episode":
                                          serve_e_out[1]["k8_launches_per_episode"],
                                      "train_per_step": train_out[1]["k8_launches_per_step"]}
-    print(json.dumps({"kernels": [record, record_b, record_k7, record_k2, record_k8]}))
+    record_k4["launches_by_path"] = {"serve_per_episode": serve_out[1]["k4_launches_per_episode"],
+                                     "serve_e_per_episode":
+                                         serve_e_out[1]["k4_launches_per_episode"]}
+    print(json.dumps({"kernels": [record, record_b, record_k7, record_k2, record_k8,
+                                  record_k4]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -7,9 +7,9 @@ the JAX package's for the same key:
 * random maps: iid Bernoulli(density) per cell;
 * sidewinder mazes: row runs of eastward carves, each run carving one
   northward passage at its member with the largest uniform;
-* connected components: min-label flood fill by segmented running
-  minima along rows and columns, iterated to the fixpoint; labels are
-  the minimum flat index of each component;
+* connected components: labels are the minimum flat index of each
+  component, by K4's union-find on a card and by the plain min-label
+  flood fill of segmented scans on the CPU;
 * placement: agents at the top-N uniforms over eligible cells (ties to
   the lower index, as ``lax.top_k``), each target the first argmax of
   masked random bits over the free cells of the agent's component;
@@ -17,8 +17,9 @@ the JAX package's for the same key:
 * the bounded retry loop of ``generate_env``.
 
 Keys are int64 ``[B, 2]``; every function returns tensors with a leading
-``B``. The host syncs once per flood-fill sweep and once per retry;
-``connected_components.sweeps`` and ``generate_env.tries`` count them.
+``B``. The host syncs once per retry, and on the CPU once per
+flood-fill sweep; ``generate_env.tries`` and
+``connected_components.sweeps`` count them.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..grid_config import OBSTACLE, StaticConfig
+from ..ops import components, cuda_components
 from ..utils.profiling import traced
 from . import random as jr
 
@@ -88,48 +90,18 @@ def pad_grid(cfg: StaticConfig, grid) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _segmented_min_scan(vals, boundary, dim: int, reverse: bool):
-    """Running minimum along ``dim`` of [B, P, P], reset at boundary
-    cells, by the encoding w = seg * K + (K-1 - v) under a running max
-    (seg only grows along the direction, so the max comes from the
-    current segment, and maximising K-1-v minimises v)."""
-    p = vals.shape[-1]
-    big = p * p
-    k = big + 2
-    if reverse:
-        vals, boundary = vals.flip(dim), boundary.flip(dim)
-    seg = torch.cumsum(boundary.long(), dim=dim)
-    w = seg * k + (k - 1 - vals.clamp(max=k - 1))
-    w = torch.cummax(w, dim=dim).values
-    out = ((k - 1) - (w - seg * k)).clamp(max=big)
-    return out.flip(dim) if reverse else out
-
-
 @traced("pogema.generator.components")
 def connected_components(padded_grid) -> torch.Tensor:
     """i64[B, P*P]: for free cells the minimum flat index of their
-    4-connected component; P*P for obstacles. Each sweep syncs the host
-    once; ``connected_components.sweeps`` counts them (the attribute sits
-    on the traced wrapper, which is what this module exports)."""
-    b, p, _ = padded_grid.shape
-    big = p * p
-    obstacle = padded_grid.bool()
-    ids = torch.arange(big, device=padded_grid.device).reshape(1, p, p)
-    labels = torch.where(obstacle, torch.full_like(ids, big), ids)
-
-    def sweep(lab):
-        lab = _segmented_min_scan(lab, obstacle, 2, False)
-        lab = _segmented_min_scan(lab, obstacle, 2, True)
-        lab = _segmented_min_scan(lab, obstacle, 1, False)
-        return _segmented_min_scan(lab, obstacle, 1, True)
-
-    for _ in range(big):
-        nxt = sweep(labels)
-        connected_components.sweeps += 1
-        if torch.equal(nxt, labels):
-            break
-        labels = nxt
-    return torch.where(obstacle, big, labels).reshape(b, big)
+    4-connected component; P*P for obstacles. On a card one K4 launch
+    (``ops/cuda_components.py``) with no host sync; on the CPU the plain
+    flood fill (``ops/components.py``), whose host-synced sweeps
+    ``connected_components.sweeps`` counts (the attribute sits on the
+    traced wrapper, which is what this module exports; K4 adds none)."""
+    before = components.connected_components.sweeps
+    labels = cuda_components.connected_components(padded_grid)
+    connected_components.sweeps += components.connected_components.sweeps - before
+    return labels
 
 
 connected_components.sweeps = 0

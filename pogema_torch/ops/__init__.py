@@ -1,9 +1,10 @@
 """Plain PyTorch ops and the hand-written CUDA kernels.
 
-``<name>.py`` (``windows``, ``threefry``, ``collisions``) is a plain
-version in PyTorch. ``cuda_<name>.py`` is the wrapper of its kernels in
-``csrc/<name>.cu``: it refuses what a kernel does not take, returns the
-plain version for CPU tensors and launches the kernel for CUDA ones.
+``<name>.py`` (``windows``, ``threefry``, ``collisions``, ``components``)
+is a plain version in PyTorch. ``cuda_<name>.py`` is the wrapper of its
+kernels in ``csrc/<name>.cu``: it refuses what a kernel does not take,
+returns the plain version for CPU tensors and launches the kernel for
+CUDA ones.
 ``cuda_policy.py``'s plain version is the model's own step
 (``RecurrentEmbedActorCritic.step_from_obs``), which it calls and does
 not import. ``launch.py`` is the seam every wrapper launches through (binding, the
