@@ -17,7 +17,10 @@ Auto-reset comes in two modes:
 * ``'regen'``: finished envs get a newly generated map and placement,
   drawn from their advanced key; an env whose draw cannot be placed
   falls back to its reset-time state. Nothing is generated on a step
-  where no env finished.
+  where no env finished. ``PogemaCore._regen_reset.envs`` counts the
+  envs regenerated (from the host-side size of the ended envs' index, so
+  without a sync), and the span ``pogema.autoreset.merge`` covers the
+  clone and scatter of the fresh rows into the running state.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from ..grid_config import GridConfig, StaticConfig
-from ..utils.profiling import traced
+from ..utils.profiling import trace_region, traced
 from . import metrics as metrics_mod
 from . import random as jr
 from . import step as step_mod
@@ -202,19 +205,21 @@ class PogemaCore:
         if not bool(done.any()):
             return new_state
         idx = torch.nonzero(done).flatten()
+        PogemaCore._regen_reset.envs += idx.numel()
         keys = _advance_key(new_state.key[idx])
         fresh = self._reset_envs(keys)
         ok = fresh.placement_ok
         kw = {}
-        for f in FIELDS:
-            cur = getattr(new_state, f)
-            if cur is None:
-                kw[f] = None
-                continue
-            fallback = keys if f == "key" else getattr(initial_state, f)[idx]
-            cur = cur.clone()
-            cur[idx] = _select(ok, getattr(fresh, f), fallback)
-            kw[f] = cur
+        with trace_region("pogema.autoreset.merge"):
+            for f in FIELDS:
+                cur = getattr(new_state, f)
+                if cur is None:
+                    kw[f] = None
+                    continue
+                fallback = keys if f == "key" else getattr(initial_state, f)[idx]
+                cur = cur.clone()
+                cur[idx] = _select(ok, getattr(fresh, f), fallback)
+                kw[f] = cur
         return EnvState(**kw)
 
     @traced("pogema.step_autoreset")
@@ -249,3 +254,6 @@ class PogemaCore:
         res.observations = self._cast_obs(step_mod.observe_state(cfg, new_state, pre_w))
         obs = self._cast_obs(step_mod.observe_state(cfg, reset_state, post_w))
         return reset_state, obs, res, done, metrics
+
+
+PogemaCore._regen_reset.envs = 0

@@ -271,8 +271,9 @@ def generate_env(cfg: StaticConfig, keys, fixed_map=None, fixed_agents_xy=None,
     targets_xy i32[B, N, 2], components i64[B, P*P], ok bool[B]). An env
     whose draw cannot be placed is drawn again, up to ``_MAX_TRIES``
     times, each from the next split of its key; ``ok`` stays False for
-    an env whose every try failed, and the caller must raise.
-    ``generate_env.tries`` counts the tries of that loop.
+    an env whose every try failed, and the caller must raise or fall
+    back. ``generate_env.tries`` counts the tries of that loop and
+    ``generate_env.unplaced`` the envs still unplaced after its last try.
 
     ``fixed_map`` u8[S, S], ``fixed_*_xy`` i32[N, 2] (logical coords)
     and ``map_bank`` u8[K, S, S] are tensors on the keys' device.
@@ -302,7 +303,9 @@ def generate_env(cfg: StaticConfig, keys, fixed_map=None, fixed_agents_xy=None,
         if todo.numel() == 0:
             break
         k = k[(~res[4]).nonzero().flatten()]
+    generate_env.unplaced += todo.numel()
     return (*out, ok)
 
 
 generate_env.tries = 0
+generate_env.unplaced = 0

@@ -106,7 +106,8 @@ GENERATOR = [("pogema.generator.map", "pogema.autoreset"),
 
 @pytest.mark.parametrize("mode,on_target,tree", [
     ("cached", "finish", STEP_TREE + OBSERVE),
-    ("regen", "restart", STEP_TREE + GENERATOR + [("pogema.generator.queue", "pogema.autoreset")]
+    ("regen", "restart", STEP_TREE + GENERATOR + [("pogema.generator.queue", "pogema.autoreset"),
+                                                  ("pogema.autoreset.merge", "pogema.autoreset")]
      + OBSERVE),
 ], ids=["cached", "regen"])
 def test_step_autoreset_span_tree(mode, on_target, tree):
