@@ -41,7 +41,12 @@ result line):
      k4: the component labels' kernel K4 bit-equal to its plain version
      (the flood fill of ``ops/components.py``) at D.serve's and E.serve's
      grids, and timed alone at the two cells' shapes beside its byte
-     bound and the plain version;
+     bound and the plain version; then k9: the placement kernel K9
+     bit-equal to its plain version (the loop over the agents of
+     ``ops/placement.py``) at C.regen's, D.serve's and E.serve's worlds,
+     timed alone at the three shapes beside its bound (the hashes the
+     semantics cannot skip) and the plain version, and launched once in
+     C.regen's ending step (one placement try);
   4. every collision system x on_target, cached and regen auto-reset: a
      small reset and 64 ``step_autoreset`` steps on the card must equal
      the same run on the CPU bit for bit (the CPU run is held against
@@ -64,14 +69,14 @@ result line):
      on config D (1024 envs x 128 agents, LifeLong 64x64, r=5) with those
      weights, 3 greedy episodes (the benchmark's cell ``D.serve`` times
      such episodes), K1b, K2 and K8 launched exactly once per step, K7 10
-     times an episode and 2N + 5 times per placement try, K4 once per
+     times an episode and 3 times per placement try, K4 and K9 once per
      placement try and no flood-fill sweep, invariants and metrics
      checked;
      then serve_e, config E (1024 envs x 256 agents, 128x128 worlds of
      the mixed random + maze pool, packed) served with the shipped
      ``.ckpt_maze256`` weights (``weights/maze256.npz``) in bf16: a
-     warm-up and 2 greedy episodes, K1b, K2 and K8 once per step, K4 once
-     per placement try and no sweep (their timing is
+     warm-up and 2 greedy episodes, K1b, K2 and K8 once per step, K4 and
+     K9 once per placement try and no sweep (their timing is
      the benchmark's cell ``E.serve``), the policy card vs CPU at B = 2,
      and the eval ladder's config-E leg (PPO and random through
      ``toolbox.evaluate``, K1 steps + 1 times each);
@@ -166,6 +171,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # threefry2x32-20 of one counter: 20 rounds of add, rotate and xor and 5
 # key injections (csrc/threefry.cu).
 K7_OPS_PER_COUNTER = 80
+# The same hash counted instruction by instruction where its key is fixed
+# over a loop, as in K9's: 20 rounds of add, rotate and xor, 10 key adds,
+# the counter's key add and the closing xor. The card issues at most one
+# warp instruction a clock in each of an SM's 4 partitions, whatever the
+# pipe: K9 at E.serve hashed faster than K7's 80 operations on the INT32
+# lanes alone would allow, so those lanes are not its limit.
+K9_OPS_PER_HASH = 72
+INSTRUCTIONS_PER_S = 132 * 4 * 32 * 1.98e9
 
 CONFIG_C = dict(size=64, num_agents=64, obs_radius=5, max_episode_steps=128,
                 collision_system="priority", on_target="finish")
@@ -854,6 +867,134 @@ def phase_k4(device):
     return record
 
 
+def _k9_cases(device):
+    """The worlds and keys of phase k9: each cell's labels (K4 on worlds
+    made on the card as the cell's resets make them), side, agent count
+    and placement keys."""
+    import numpy as np
+    import torch
+
+    from pogema_torch import GridConfig
+    from pogema_torch.core import generator
+    from pogema_torch.maps import mixed_pool
+
+    rng = np.random.default_rng(9)
+
+    def keys(b):
+        return torch.as_tensor(rng.integers(0, 2**32, (b, 2)), dtype=torch.int64).to(device)
+
+    cases = {}
+    for label, kw, b in (("C.regen", CONFIG_C, NUM_ENVS_C), ("D.serve", CONFIG_D, NUM_ENVS_D),
+                         ("E.serve", CONFIG_E, NUM_ENVS_E)):
+        cfg = GridConfig(**kw).to_static()
+        if label == "C.regen":
+            grid = generator.sidewinder_maze(cfg, keys(b))
+        elif label == "D.serve":
+            grid = generator.bernoulli_obstacles(cfg, keys(b))
+        else:
+            pool = torch.as_tensor(mixed_pool(cfg.size, k=8, braid=0.15)).to(device)
+            grid = pool[torch.as_tensor(rng.integers(0, len(pool), b)).to(device)]
+        labels = generator.connected_components(generator.pad_grid(cfg, grid))
+        cases[label] = (keys(b), labels, cfg.padded_size, cfg.num_agents)
+    return cases
+
+
+def _k9_hashes(labels, agents, p):
+    """The hashes placement cannot skip: one a cell for the agents' keys
+    (the eligible cells; the others have no draw) and, for each agent,
+    one a cell of its component but its own."""
+    import torch
+
+    from pogema_torch.ops.placement import multi_cell_component
+
+    b, big = labels.shape
+    sizes = torch.zeros(b, big + 1, dtype=torch.int64, device=labels.device)
+    sizes.scatter_add_(1, labels, torch.ones_like(labels))
+    comp = labels.gather(1, agents)
+    own = (sizes.gather(1, comp) - 1).masked_fill(comp == big, 0)
+    return int(multi_cell_component(labels, p).sum()) + int(own.sum())
+
+
+def phase_k9(device):
+    """K9, the placement of a reset's agents and targets, bit-equal to its
+    plain version (the loop over the agents of ``ops/placement.py``, run
+    on the card) at C.regen's (4096 sidewinder mazes of 64 x 64, 64
+    agents), D.serve's (1024 Bernoulli(0.3) maps of 64 x 64, 128 agents)
+    and E.serve's shapes (1024 worlds of config E's pool, 128 x 128, 256
+    agents), one launch each (``tests/test_torch_placement_card.py``
+    holds the other grids and sizes); then timed at the three shapes by
+    graph replay and by CUDA events beside its bound (the hashes the
+    semantics cannot skip, counted from the worlds, at K9_OPS_PER_HASH
+    instructions a hash and the card's issue rate) and the plain version's
+    time by events. Then K9's
+    launches in C.regen's ending step: one per placement try. Its
+    registers, spills and shared memory are the build's ptxas lines.
+    Returns the kernel record."""
+    import torch
+
+    from pogema_torch import GridConfig, PogemaCore
+    from pogema_torch.core import generator
+    from pogema_torch.ops import cuda_placement, placement
+
+    cases = _k9_cases(device)
+    k9 = cuda_placement.placement_cuda
+    saved = k9.launches
+    record = {"kernel": "K9 placement"}
+    for label, (keys, labels, p, n) in cases.items():
+        before = k9.launches
+        got = cuda_placement.place_agents_and_targets(keys, labels, p, n)
+        torch.cuda.synchronize()
+        if k9.launches != before + 1:
+            raise AssertionError(f"K9 at {label} launched {k9.launches - before} times, "
+                                 f"expected 1")
+        want = placement.place_agents_and_targets(keys, labels, p, n)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K9 differs from its plain version at {label}")
+        if not bool(got[2].all()):
+            raise AssertionError(f"K9 at {label} placed {int(got[2].sum())} of {len(got[2])} envs")
+        print(f"K9 bit-equal to its plain version at {label}", flush=True)
+
+        def run():
+            return cuda_placement.place_agents_and_targets(keys, labels, p, n)
+
+        hashes = _k9_hashes(labels, got[0], p)
+        b = keys.shape[0]
+        rec = {"shape": [b, p, n], "hashes": hashes,
+               "bound_ms": K9_OPS_PER_HASH * hashes / INSTRUCTIONS_PER_S * 1e3,
+               "bound_by": "instruction issue", "device_ms": graph_time_ms(run, 10, replays=3),
+               "ms": cuda_time_ms(run, iters=10),
+               "plain_ms": cuda_time_ms(lambda: placement.place_agents_and_targets(
+                   keys, labels, p, n), iters=3, warmup=1)}
+        record[label] = rec
+        print(f"K9 at {label}'s [{b}, {p}, {p}] x {n} agents: {rec['device_ms']:.4f} ms device "
+              f"time by graph replay ({rec['bound_ms'] / rec['device_ms']:.2f} of its bound, "
+              f"{rec['bound_ms']:.4f} ms for {hashes} hashes at {K9_OPS_PER_HASH} instructions "
+              f"a hash and {INSTRUCTIONS_PER_S:.4g} a second), {rec['ms']:.4f} ms by events; the "
+              f"plain version "
+              f"{rec['plain_ms']:.4f} ms by events", flush=True)
+
+    # C.regen's ending step: every env regenerated, one K9 launch a try.
+    core = PogemaCore(GridConfig(seed=0, **CONFIG_C), num_envs=NUM_ENVS_C, maze=True,
+                      device=device, auto_reset_mode="regen", obs_layout="packed")
+    gen = torch.Generator(device=device).manual_seed(9)
+    state, _ = core.reset(0)
+    init = state
+    for _ in range(CONFIG_C["max_episode_steps"]):
+        actions = torch.randint(0, 5, (NUM_ENVS_C, CONFIG_C["num_agents"]), device=device,
+                                generator=gen, dtype=torch.int32)
+        before, tries = k9.launches, generator.generate_env.tries
+        state, _, _, done, _ = core.step_autoreset(state, init, actions)
+    launches, tries = k9.launches - before, generator.generate_env.tries - tries
+    if not bool(done.all()) or launches != tries or tries < 1:
+        raise AssertionError(f"C.regen's ending step launched K9 {launches} times in {tries} "
+                             f"placement tries, {int(done.sum())} envs ending; expected one a try")
+    record["launches_by_path"] = {"regen_ending_step": launches}
+    print(f"K9 in C.regen's ending step: {launches} launch(es) in {tries} placement tries",
+          flush=True)
+    k9.launches = saved
+    return record
+
+
 def _states_equal(a, b):
     from pogema_torch.interop import state_to_numpy
     import numpy as np
@@ -1093,6 +1234,15 @@ def _check_k4(label, launches, tries, sweeps):
     return launches
 
 
+def _check_k9(label, launches, tries):
+    """K9 once per placement try of a reset on the card. Returns the
+    launches."""
+    if launches != tries or tries < 1:
+        raise AssertionError(f"{label} launched K9 {launches} times in {tries} placement tries, "
+                             f"expected one a try")
+    return launches
+
+
 def phase_serve(device):
     """This slice's path at full width: make_policy_evaluator on config D
     (1024 envs x 128 agents, 64x64, r=5, LifeLong) with the shipped
@@ -1106,6 +1256,7 @@ def phase_serve(device):
     from pogema_torch.interop import load_policy
     from pogema_torch.ops.cuda_collisions import collisions_cuda
     from pogema_torch.ops.cuda_components import components_cuda
+    from pogema_torch.ops.cuda_placement import placement_cuda
     from pogema_torch.ops.cuda_policy import policy_cuda
     from pogema_torch.ops.cuda_threefry import threefry_cuda
     from pogema_torch.parallel import make_policy_evaluator
@@ -1120,10 +1271,11 @@ def phase_serve(device):
     # keys and of those into state, generator and queue keys, the action
     # stream's fold_in, the goal queue's split and two randints (a split
     # and two bits each), and per placement try the try's split, the
-    # attempt's split, the map's Bernoulli draw, the placement's split, the
-    # agents' uniform and a fold_in and bits per agent.
-    k7_fixed, k7_per_try = 2 + 1 + 7, 5 + 2 * n
+    # attempt's split and the map's Bernoulli draw (K9 hashes the
+    # placement's draws itself).
+    k7_fixed, k7_per_try = 2 + 1 + 7, 3
     throughput, k7_episodes, k2_episodes, k8_episodes, k4_episodes = [], [], [], [], []
+    k9_episodes = []
     k1.launches = kernel.launches = 0
     collisions.fixpoint.passes = 0
     for ep in range(SERVE_EPISODES):
@@ -1131,10 +1283,13 @@ def phase_serve(device):
                                                    collisions_cuda.launches, policy_cuda.launches)
         k4_before, tries, sweeps = (components_cuda.launches, generator.generate_env.tries,
                                     generator.connected_components.sweeps)
+        k9_before = placement_cuda.launches
         state, metrics = run(core.make_key(ep))
         k4_episodes.append(_check_k4(f"episode {ep}", components_cuda.launches - k4_before,
                                      generator.generate_env.tries - tries,
                                      generator.connected_components.sweeps - sweeps))
+        k9_episodes.append(_check_k9(f"episode {ep}", placement_cuda.launches - k9_before,
+                                     generator.generate_env.tries - tries))
         k8_episodes.append(policy_cuda.launches - k8_before)
         if k8_episodes[-1] != steps:
             raise AssertionError(f"episode {ep} launched K8 {k8_episodes[-1]} times, expected "
@@ -1165,7 +1320,8 @@ def phase_serve(device):
                "k1b_launches": launches[1],
                "k1b_launches_per_episode": launches[1] / SERVE_EPISODES,
                "k7_launches_per_episode": k7_episodes, "k2_launches_per_episode": k2_episodes,
-               "k8_launches_per_episode": k8_episodes, "k4_launches_per_episode": k4_episodes}
+               "k8_launches_per_episode": k8_episodes, "k4_launches_per_episode": k4_episodes,
+               "k9_launches_per_episode": k9_episodes}
     print("serve (config D, 1024 x 128, rec128_ft bf16, greedy): " + json.dumps(summary), flush=True)
     return launches, summary
 
@@ -1456,6 +1612,7 @@ def phase_serve_e(device):
     from pogema_torch.maps import mixed_pool
     from pogema_torch.ops.cuda_collisions import collisions_cuda
     from pogema_torch.ops.cuda_components import components_cuda
+    from pogema_torch.ops.cuda_placement import placement_cuda
     from pogema_torch.ops.cuda_policy import policy_cuda
     from pogema_torch.parallel import make_policy_evaluator
     from pogema_torch.toolbox import evaluate
@@ -1469,18 +1626,22 @@ def phase_serve_e(device):
     run = make_policy_evaluator(core, model)
     run(core.make_key(100))
 
-    launches, throughput, k8_episodes, k4_episodes = {}, [], [], []
+    launches, throughput, k8_episodes, k4_episodes, k9_episodes = {}, [], [], [], []
     k1.launches = kernel.launches = 0
     for ep in range(2):
         before, k2_before, k8_before = (kernel.launches, collisions_cuda.launches,
                                         policy_cuda.launches)
         k4_before, tries, sweeps = (components_cuda.launches, generator.generate_env.tries,
                                     generator.connected_components.sweeps)
+        k9_before = placement_cuda.launches
         state, metrics = run(core.make_key(ep))
         k4_episodes.append(_check_k4(f"config-E episode {ep}",
                                      components_cuda.launches - k4_before,
                                      generator.generate_env.tries - tries,
                                      generator.connected_components.sweeps - sweeps))
+        k9_episodes.append(_check_k9(f"config-E episode {ep}",
+                                     placement_cuda.launches - k9_before,
+                                     generator.generate_env.tries - tries))
         k8_episodes.append(policy_cuda.launches - k8_before)
         if k8_episodes[-1] != steps:
             raise AssertionError(f"config-E episode {ep} launched K8 {k8_episodes[-1]} times, "
@@ -1544,7 +1705,7 @@ def phase_serve_e(device):
                         "avg_throughput": m["avg_throughput"]}
     summary = {"envs": b, "agents": n, "reset_s": reset_s, "avg_throughput": throughput,
                "k1b_launches": launches["serve_e"][1], "k8_launches_per_episode": k8_episodes,
-               "k4_launches_per_episode": k4_episodes,
+               "k4_launches_per_episode": k4_episodes, "k9_launches_per_episode": k9_episodes,
                "policy_b2_max_rel_err": max(errs), "policy_b2_decided": decided,
                "policy_b2_flips": flips, "ladder_world": idx, "ladder": ladder}
     print(f"serve_e (config E, {b} x {n}, maze256 bf16, greedy): " + json.dumps(summary),
@@ -2601,18 +2762,21 @@ def fixed_units(workload, seed, units) -> int:
     """``--fixed-units WORKLOAD SEED UNITS``: the benchmark cell's set-up on
     ``SEED``, then its first ``UNITS`` units, as a timed window would start.
     Prints one JSON line: the collision fixpoint's passes over those units
-    (each unit's and their sum), the env steps they made, and sha256
+    (each unit's and their sum), the env steps they made, the generator's
+    placement tries (``generate_env.tries``) over them, and sha256
     digests of what they left (``C.random``: the env state; ``D.serve``:
     each kept episode's final rows and metrics, and apart from them its
     logits). ``fixpoint_passes_per_step`` averages over whatever units a
     timed window holds, so a faster checkout reads it over more and other
     units; these counts and digests compare two checkouts over the same
-    ones (the passes read 0 where K2 resolves the collisions). Run it
+    ones (the passes read 0 where K2 resolves the collisions; the tries
+    are equal wherever the resets are). Run it
     from the root of each checkout (copy this file there)."""
     import hashlib
 
     import torch
 
+    from pogema_torch.core import generator
     from portbench.harness import Cell, Context, load_manifest, load_module
 
     def digest(tensors):
@@ -2627,14 +2791,15 @@ def fixed_units(workload, seed, units) -> int:
     drv = load_module("drivers", cell.traffic["driver"]).Driver(ctx)
     drv.setup()
     ctx.sync()
-    per_unit = []
+    per_unit, tries = [], generator.generate_env.tries
     for _ in range(units):
-        before = drv.counters()["fixpoint_passes"]
+        before = drv.counters().get("fixpoint_passes", 0)
         drv.unit()
-        per_unit.append(drv.counters()["fixpoint_passes"] - before)
+        per_unit.append(drv.counters().get("fixpoint_passes", 0) - before)
     out = {"workload": workload, "seed": seed, "units": units, "passes": sum(per_unit),
            "passes_per_unit": per_unit, "steps": units * drv.work["steps"],
-           "passes_per_step": sum(per_unit) / (units * drv.work["steps"])}
+           "passes_per_step": sum(per_unit) / (units * drv.work["steps"]),
+           "placement_tries": generator.generate_env.tries - tries}
     if workload.startswith("C."):
         out["state_digest"] = digest(drv.state.tensors())
     else:
@@ -2912,6 +3077,7 @@ def main() -> int:
     record_k2 = phase("k2", phase_k2, device)
     record_k8 = phase("k8", phase_k8, device)
     record_k4 = phase("k4", phase_k4, device)
+    record_k9 = phase("k9", phase_k9, device)
     phase("devices_agree", phase_devices_agree, device)
     main_out = phase("main_path", phase_main, device)
     pomapf_out = phase("pomapf", phase_pomapf, device)
@@ -2932,7 +3098,8 @@ def main() -> int:
     mesh_nccl_out = phase("mesh_nccl", phase_mesh_nccl, device)
 
     shapes = phase("k1_shapes", phase_k1_shapes, device)
-    if failed or None in (record, record_b, record_k7, record_k2, record_k8, record_k4, wide_out, main_out, pomapf_out, serve_out,
+    if failed or None in (record, record_b, record_k7, record_k2, record_k8, record_k4, record_k9,
+                          wide_out, main_out, pomapf_out, serve_out,
                           serve_e_out, train_out, train_ff_out, shapes, rim_env_out,
                           rim_vector_out, mesh_one_out, mesh_gloo_out, mesh_nccl_out):
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
@@ -2992,8 +3159,11 @@ def main() -> int:
     record_k4["launches_by_path"] = {"serve_per_episode": serve_out[1]["k4_launches_per_episode"],
                                      "serve_e_per_episode":
                                          serve_e_out[1]["k4_launches_per_episode"]}
+    record_k9["launches_by_path"].update(
+        serve_per_episode=serve_out[1]["k9_launches_per_episode"],
+        serve_e_per_episode=serve_e_out[1]["k9_launches_per_episode"])
     print(json.dumps({"kernels": [record, record_b, record_k7, record_k2, record_k8,
-                                  record_k4]}))
+                                  record_k4, record_k9]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -12,7 +12,8 @@ the JAX package's for the same key:
   flood fill of segmented scans on the CPU;
 * placement: agents at the top-N uniforms over eligible cells (ties to
   the lower index, as ``lax.top_k``), each target the first argmax of
-  masked random bits over the free cells of the agent's component;
+  masked random bits over the free cells of the agent's component, by
+  K9 on a card and by the plain loop over the agents on the CPU;
 * the LifeLong goal queue drawn from a component-sorted cell table;
 * the bounded retry loop of ``generate_env``.
 
@@ -28,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from ..grid_config import OBSTACLE, StaticConfig
-from ..ops import components, cuda_components
+from ..ops import components, cuda_components, cuda_placement
+from ..ops.placement import multi_cell_component  # noqa: F401  (the eligibility mask, for callers)
 from ..utils.profiling import traced
 from . import random as jr
 
@@ -112,53 +114,16 @@ connected_components.sweeps = 0
 # ---------------------------------------------------------------------------
 
 
-def multi_cell_component(components, p: int) -> torch.Tensor:
-    """bool[B, P*P]: free cells with a free 4-neighbour (component of
-    size >= 2). The border is obstacles, so wrapped reads are not free."""
-    b = components.shape[0]
-    free = (components < p * p).reshape(b, p, p)
-    nbr = (free.roll(1, 1) | free.roll(-1, 1) | free.roll(1, 2) | free.roll(-1, 2))
-    return (free & nbr).reshape(b, p * p)
-
-
 @traced("pogema.generator.place")
 def place_agents_and_targets(cfg: StaticConfig, keys, components):
     """N distinct agent cells among eligible cells, then per agent a
     target: a free cell of its component, distinct from earlier targets
     and from its own start. Returns (agent_cells i64[B, N], target_cells
-    i64[B, N], ok bool[B])."""
-    p = cfg.padded_size
-    n = cfg.num_agents
-    big = p * p
-    b = keys.shape[0]
-    dev = keys.device
-    k = jr.split(keys, 2)
-    k_agents, k_targets = k[:, 0], k[:, 1]
-
-    eligible = multi_cell_component(components, p)
-    u = jr.uniform(k_agents, (big,))
-    scores = torch.where(eligible, u, torch.full_like(u, -1.0))
-    # lax.top_k order: descending, ties to the lower index (stable sort).
-    top_scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
-    agents_ok = (top_scores[:, :n] >= 0.0).all(dim=1)
-    agent_cells = order[:, :n]
-
-    free = components < big
-    cell_ids = torch.arange(big, device=dev)
-    used = torch.zeros(b, big, dtype=torch.bool, device=dev)
-    targets = torch.zeros(b, n, dtype=torch.int64, device=dev)
-    ok = agents_ok
-    for i in range(n):
-        a = agent_cells[:, i : i + 1]
-        comp = components.gather(1, a)
-        mask = free & (components == comp) & ~used & (cell_ids[None, :] != a)
-        g = jr.bits(jr.fold_in(k_targets, i), (big,))
-        sc = torch.where(mask, g, torch.zeros_like(g))
-        c = torch.argmax(sc, dim=1, keepdim=True)  # first index of the max
-        ok = ok & mask.gather(1, c)[:, 0]
-        used = used | (cell_ids[None, :] == c)
-        targets[:, i] = c[:, 0]
-    return agent_cells, targets, ok
+    i64[B, N], ok bool[B]). On a card one K9 launch
+    (``ops/cuda_placement.py``) with no host sync; on the CPU the plain
+    version (``ops/placement.py``)."""
+    return cuda_placement.place_agents_and_targets(keys.contiguous(), components.contiguous(),
+                                                   cfg.padded_size, cfg.num_agents)
 
 
 def cells_to_xy(cells, p: int) -> torch.Tensor:

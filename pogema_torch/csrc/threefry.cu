@@ -33,8 +33,9 @@
 // floor is all there is (0.0015 ms measured).
 //
 // Design: one counter per thread in a grid-stride loop, no shared memory.
-// The whole 20-round chain stays in u32 registers, each rotation is one
-// funnel shift (__funnelshift_l). A thread finds its key row and column
+// The hash is threefry2x32 of csrc/threefry.cuh (shared with K9): the whole
+// 20-round chain stays in u32 registers, each rotation is one funnel shift
+// (__funnelshift_l). A thread finds its key row and column
 // once by a division and steps both by the stride after that. Stores are
 // whole int64 words (bits) or 16-byte pairs (split, fold_in) in output
 // order, so a warp writes consecutive bytes.
@@ -42,39 +43,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 4096;  // about 4 waves of 8 resident blocks on each of 132 SMs
-constexpr uint32_t kParity = 0x1BD11BDAu;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int d) { return __funnelshift_l(x, x, d); }
-
-// Four rounds with rotations r0..r3, then the key injection of step `i`.
-template <int r0, int r1, int r2, int r3>
-__device__ __forceinline__ void rounds(uint32_t& x0, uint32_t& x1, uint32_t ka, uint32_t kb,
-                                       uint32_t i) {
-  x0 += x1; x1 = rotl(x1, r0) ^ x0;
-  x0 += x1; x1 = rotl(x1, r1) ^ x0;
-  x0 += x1; x1 = rotl(x1, r2) ^ x0;
-  x0 += x1; x1 = rotl(x1, r3) ^ x0;
-  x0 += ka;
-  x1 += kb + i;
-}
-
-// threefry2x32-20 of the counter words (x0, x1) under the key (k0, k1).
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
-                                             uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ kParity;
-  x0 += k0;
-  x1 += k1;
-  rounds<13, 15, 26, 6>(x0, x1, k1, k2, 1);
-  rounds<17, 29, 16, 24>(x0, x1, k2, k0, 2);
-  rounds<13, 15, 26, 6>(x0, x1, k0, k1, 3);
-  rounds<17, 29, 16, 24>(x0, x1, k1, k2, 4);
-  rounds<13, 15, 26, 6>(x0, x1, k2, k0, 5);
-}
-
 __global__ void __launch_bounds__(kThreads)
 threefry_kernel(const int64_t* __restrict__ keys, const int64_t* __restrict__ data,
                 int64_t* __restrict__ out, long long rows, long long numel,

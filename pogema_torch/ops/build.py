@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` at the
 root of the checkout, compiled for ``sm_90a`` with a plain C entry point
 (no PyTorch headers, so a build takes seconds). The hash covers the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is reused. ``build_all`` starts one nvcc per source at once, and
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. ``build_all`` starts one nvcc per source at once, and
 :func:`load` builds every source that is not built yet in one such call,
 so a checkout's first run waits for one parallel build, not one per
 kernel.
@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("collisions", "components", "policy", "threefry", "windows")
+SOURCES = ("collisions", "components", "placement", "policy", "threefry", "windows")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,7 +40,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

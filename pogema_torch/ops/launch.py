@@ -23,11 +23,12 @@ from . import build
 PTR, I32, I64, U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
 
 
-def bind(source: str, entry: str, *argtypes):
-    """The C function ``int entry(argtypes...)`` of ``csrc/<source>.cu``,
-    built first if need be (:func:`build.load`). Bind once and keep it."""
+def bind(source: str, entry: str, *argtypes, restype=I32):
+    """The C function ``restype entry(argtypes...)`` (an int unless said)
+    of ``csrc/<source>.cu``, built first if need be (:func:`build.load`).
+    Bind once and keep it."""
     fn = getattr(build.load(source), entry)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    fn.argtypes, fn.restype = argtypes, restype
     return fn
 
 

@@ -6,8 +6,9 @@ The families: the three kinds of world the reset floods (Bernoulli(0.3)
 maps, sidewinder mazes and config E's braided mixed pool, each inside the
 padded border of width 5 that ``pad_grid`` adds) and hand-made extremes
 (an all-free grid, an all-obstacle grid, a checkerboard, isolated cells
-on the even lattice, and one corridor that spirals inward, the longest
-chain of the plain version's sweeps).
+on the even lattice, one corridor that spirals inward, the longest
+chain of the plain version's sweeps, and rows of three-cell runs, whose
+components are too small for all the agents placed in them).
 """
 
 import functools
@@ -21,7 +22,7 @@ from pogema_torch.maps import mixed_pool
 
 BORDER = 5
 WORLDS = ("random", "sidewinder", "pool")
-EXTREMES = ("free", "walls", "checkerboard", "isolated", "spiral")
+EXTREMES = ("free", "walls", "checkerboard", "isolated", "spiral", "trominoes")
 FAMILIES = WORLDS + EXTREMES
 
 
@@ -68,5 +69,6 @@ def grids(family, b, p, seed=0):
     one = {"free": np.zeros((p, p), np.uint8), "walls": np.ones((p, p), np.uint8),
            "checkerboard": ((x + y) % 2).astype(np.uint8),
            "isolated": ((x % 2) | (y % 2)).astype(np.uint8),
-           "spiral": spiral(p)}[family]
+           "spiral": spiral(p),
+           "trominoes": ((x % 2) | (y % 4 == 3)).astype(np.uint8)}[family]
     return np.broadcast_to(one, (b, p, p)).copy()

@@ -17,7 +17,7 @@ from collision_cases import scenario
 from pogema_torch import GridConfig
 from pogema_torch.core import collisions as core_collisions
 from pogema_torch.ops import collisions as ops_collisions
-from pogema_torch.ops import cuda_collisions, cuda_threefry, cuda_windows
+from pogema_torch.ops import cuda_collisions, cuda_placement, cuda_threefry, cuda_windows
 from pogema_tpu.core import collisions as jcol
 
 PACKAGE = Path(__file__).resolve().parents[1] / "pogema_torch"
@@ -97,6 +97,9 @@ WRAPPERS = {
            lambda: [torch.arange(8, dtype=torch.int64).reshape(4, 2)], 0),
     "K2": (lambda a: cuda_collisions.resolve_priority(*a),
            lambda: list(map(torch.as_tensor, scenario("crowded", 8))), 3),
+    "K9": (lambda a: cuda_placement.place_agents_and_targets(*a, 3, 2),
+           lambda: [torch.arange(4, dtype=torch.int64).reshape(2, 2),
+                    torch.tensor([[9, 1, 1, 9, 1, 9, 9, 9, 9]] * 2)], 1),
 }
 FAULTS = {
     "devices_differ": (ValueError, lambda t: t.to("meta")),
